@@ -6,18 +6,33 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and build: versions, the card's name and power limit, and the
-   nvcc build of every kernel of the render path (K1, csrc/rasterize_fwd.cu);
+   nvcc builds of every kernel (K1, csrc/rasterize_fwd.cu; K2,
+   csrc/rasterize_bwd.cu), started together;
 2. K1 against its plain PyTorch version on the card and against the stored
    JAX outputs, on (a) the stored gate (tests/golden/pallas_gate.npz),
    (b) the span edge cases, (c) one full-size 800x800 Lego view, close
    enough that every tile is occupied;
-3. the main path: ``render_gaussians`` on the trained Lego point cloud
+3. the render path: ``render_gaussians`` on the trained Lego point cloud
    (assets/lego_trained.ply, 129,053 Gaussians, SH degree 3) at 800x800
    from four orbit views, plus one ``render_forward`` view with
-   tight_radius, pair_cull and a fitted kept_capacity; the launch counter
-   is zeroed just before and read just after, and every image is held
+   tight_radius, pair_cull and a fitted kept_capacity; the launch counts
+   are zeroed just before and read just after, and every image is held
    against the plain version's image of the same view;
-4. times with CUDA events (medians after a warm-up) and K1's bound.
+4. render times with CUDA events (medians after a warm-up) and K1's bound;
+5. K2 (with its epilogue) against the stored JAX gradients of the gate, and
+   against its plain version on the card on the gate, the high-opacity
+   early-exit scene and the close 800x800 view; two runs of K2 give
+   bit-identical rows;
+6. the main path, training: 20 ``train_step``s at full width on the
+   perturbed trained Lego (capacity 193,579 with the alive mask), in the
+   trainer's camera order over 8 orbit views whose targets are the port's
+   renders of the unperturbed Lego; the launch counts are zeroed just
+   before and read just after (one K1 and one K2 launch per step), no step
+   overflows, loss and gradients are finite, and the L1 loss on a held-out
+   orbit view falls;
+7. one step with K1 + K2 against the same step with the plain versions on
+   the card, in the raw/L1 and the activated/SSIM configurations;
+8. training times with CUDA events and K2's bound.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of gstpu.
@@ -35,25 +50,59 @@ import numpy as np
 import torch
 
 from gstpu_torch import convert, scenes
-from gstpu_torch.config import RenderSettings
+from gstpu_torch.config import GSConfig, RenderSettings
+from gstpu_torch.models.gaussians import GaussianModel, grow_capacity
 from gstpu_torch.ops import cuda_rasterize, rasterize
 from gstpu_torch.ops.binning import build_pairs
+from gstpu_torch.ops.losses import l1_loss, l1_pixel_gradients
 from gstpu_torch.ops.preprocess import preprocess
+from gstpu_torch.optim import adam_step, init_adam_state, schedule_lrs
 from gstpu_torch.render import default_pair_capacity, render_gaussians
+from gstpu_torch.trainer import (loss_and_grads, round_capacity,
+                                 train_settings, train_step)
 
 SIZE = 800
 THETAS = (0.0, 0.5 * math.pi, math.pi, 1.5 * math.pi)
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-FLOPS_PER_STEP = 20       # per evaluated (pixel, pair) step of K1
+FLOPS_PER_STEP = 20       # per evaluated (pixel, pair) step (K1 and K2)
+BWD_FLOPS_PER_KEPT = 56   # K2's gradient terms (46) and sums (10) per kept step
 RECORD_BYTES = 40         # one packed Gaussian record (10 f32)
 OUT_BYTES_PER_PIXEL = 24  # color 12, inverse depth 4, final T 4, n_contrib 4
+PIX_IN_BYTES = 28         # K2's per-pixel inputs (7 f32)
+ROW_BYTES = 40            # K2's per-pair output row (10 f32)
 # thresholds of the compiled gate (gstpu/ops/pallas_check.py:160-188)
 MAX_FLIP_FRAC = 0.05
 MAX_COLOR_ERR = 1e-5
 MAX_DEPTH_ERR = 1e-4
 BOUNDARY_T = 6e-4
+# Gradients: error relative to each output's largest magnitude (the
+# compiled gate's 1e-3, gstpu/ops/pallas_check.py:174-182).  Flip-tolerant
+# where keep-threshold pairs may flip between the kernel's sequential
+# transmittance and the plain version's cumulative product: at most
+# GRAD_OUTLIER_FRAC of the elements may exceed GRAD_REL_TOL, none
+# GRAD_OUTLIER_CAP.
+GRAD_REL_TOL = 1e-3
+GRAD_OUTLIER_FRAC = 1e-3
+GRAD_OUTLIER_CAP = 2e-2
+LOSS_REL_TOL = 1e-5
+GRAD_NAMES = ("d_color", "d_mean2d", "d_conic", "d_opac", "d_invdepth")
+# Training main path: 8 orbit views (theta = 2 pi k / 8), a held-out view
+# between two of them, 20 steps of the default raw recipe.  Its first Adam
+# steps move every visible Gaussian by about the learning rate (1e-2 in
+# position, 5e-3 in scale, against a median Lego scale of 0.008), which
+# takes the converged Lego to a held-out L1 of about 0.04; so the check
+# starts from a model perturbed well beyond that, drawn from
+# np.random.default_rng(PERTURB_SEED): positions + N(0, 0.05^2) per axis,
+# SH DC + N(0, 0.5^2) per channel, opacities x U(0.5, 1).
+TRAIN_VIEWS = 8
+HELD_OUT_THETA = math.pi / 8
+TRAIN_STEPS = 20
+PERTURB_SEED = 0
+PERTURB_POS = 0.05
+PERTURB_SH_DC = 0.5
+PERTURB_OPACITY = (0.5, 1.0)
 
 
 def log(**kw) -> None:
@@ -156,23 +205,40 @@ def fitted_cull_settings(params, cam, size: int) -> RenderSettings:
                           kept_capacity=kept_capacity)
 
 
-def evaluated_steps(prep, pairs, settings, n_contrib) -> int:
-    """(pixel, pair) steps K1 evaluates on these inputs: a pixel walks its
-    tile's pairs up to and including the first passing pair after its last
-    contributor (the break), or the whole tile if it never breaks."""
-    pixf_x, pixf_y = rasterize._tile_pixel_coords(settings, 0, prep.xy.device)
+def walk_counts(prep, pairs, settings) -> tuple[int, int]:
+    """(evaluated, kept) (pixel, pair) steps of the sequential walk that K1
+    and K2 make on these inputs: a pixel evaluates its tile's pairs up to
+    and including the first passing pair that would take its transmittance
+    below 1e-4 (the break), or the whole tile if it never breaks; kept are
+    the pairs it composites."""
+    dev = prep.xy.device
+    pixf_x, pixf_y = rasterize._tile_pixel_coords(settings, 0, dev)
+    t = settings.band_tiles
     big = torch.iinfo(torch.int32).max
-    brk = torch.full_like(n_contrib, big)
+    trans = torch.ones((t, 256), dtype=torch.float32, device=dev)
+    done = torch.zeros((t, 256), dtype=torch.bool, device=dev)
+    brk = torch.full((t, 256), big, dtype=torch.int32, device=dev)
+    kept_steps = 0
     chunk = 64
     n_chunks = int(((pairs.tile_count + chunk - 1) // chunk).max())
     for i in range(n_chunks):
+        if bool(done.all()):
+            break
         gid, pvalid, pos = rasterize._chunk_pair_data(pairs, i, chunk)
-        _, indiv = rasterize._chunk_alpha(prep, gid, pvalid, pixf_x, pixf_y)
-        cand = indiv & (pos[None, None, :] >= n_contrib[:, :, None])
-        first = torch.where(cand, pos[None, None, :], big).amin(-1)
-        brk = torch.minimum(brk, first)
+        alpha_eff, indiv = rasterize._chunk_alpha(prep, gid, pvalid, pixf_x,
+                                                  pixf_y)[:2]
+        p_incl = trans[:, :, None] * torch.cumprod(1.0 - alpha_eff, dim=-1)
+        live = ~done[:, :, None]
+        kept = indiv & (p_incl >= rasterize.T_EPS) & live
+        cross = indiv & (p_incl < rasterize.T_EPS) & live
+        brk = torch.minimum(brk, torch.where(cross, pos[None, None, :],
+                                             big).amin(-1))
+        kept_steps += int(kept.sum())
+        p_last = torch.where(kept, p_incl, torch.inf).amin(-1)
+        trans = torch.where(torch.isfinite(p_last), p_last, trans)
+        done = done | cross.any(-1)
     steps = torch.where(brk < big, brk + 1, pairs.tile_count[:, None])
-    return int(steps.sum(dtype=torch.int64))
+    return int(steps.sum(dtype=torch.int64)), kept_steps
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -217,10 +283,10 @@ def phase_build() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    path, build_log, seconds = cuda_rasterize.build()
-    log(kernel="rasterize_fwd", library=str(path), build_s=seconds)
-    if build_log.strip():
-        print(build_log.strip(), flush=True)
+    for name, (path, build_log, seconds) in cuda_rasterize.build().items():
+        log(kernel=name, library=str(path), build_s=seconds)
+        if build_log.strip():
+            print(build_log.strip(), flush=True)
 
 
 def phase_kernel_checks(params, size: int, device) -> float:
@@ -269,16 +335,19 @@ def phase_main_path(params, size: int, device, bg) -> int:
     views.append(("orbit theta=0.0000 tight_radius+pair_cull", cams[0], cull,
                   lambda: render_cull_view(params, cams[0], cull, bg)))
 
+    launches = cuda_rasterize.LAUNCHES
     torch.cuda.synchronize()
-    cuda_rasterize.LAUNCHES = 0
+    for k in launches:
+        launches[k] = 0
     renders = []
     for name, cam, settings, fn in views:
-        before = cuda_rasterize.LAUNCHES
+        before = launches["rasterize_fwd"]
         out = fn()
         renders.append((name, cam, settings, out,
-                        cuda_rasterize.LAUNCHES - before))
+                        launches["rasterize_fwd"] - before))
     torch.cuda.synchronize()
-    launches = cuda_rasterize.LAUNCHES
+    counts = dict(launches)
+    log(path="render", launches=counts)
 
     for name, cam, settings, (image, depth, aux), n_launch in renders:
         _, pairs = prep_and_pairs(params, cam, settings)
@@ -302,9 +371,9 @@ def phase_main_path(params, size: int, device, bg) -> int:
                      aux.final_t, aux.n_contrib))
         compare(f"{name}: kernel render vs plain render", got,
                 to_np(plain_outputs(params, cam, settings, bg)))
-    if launches != len(renders):
-        raise RuntimeError(f"{launches} launches for {len(renders)} renders")
-    return launches
+    if counts != {"rasterize_fwd": len(renders), "rasterize_bwd": 0}:
+        raise RuntimeError(f"{counts} launches for {len(renders)} renders")
+    return counts["rasterize_fwd"]
 
 
 def phase_timing(params, size: int, device, bg) -> dict:
@@ -321,8 +390,7 @@ def phase_timing(params, size: int, device, bg) -> dict:
         prep, pairs, settings), 50)
     plain_ms = time_ms(lambda: rasterize.composite_forward(
         prep, pairs, settings), 5, warmup=1)
-    n_contrib = cuda_rasterize.composite_forward(prep, pairs, settings)[3]
-    steps = evaluated_steps(prep, pairs, settings, n_contrib)
+    steps, _ = walk_counts(prep, pairs, settings)
     t = settings.num_tiles
     pair_slots = int(pairs.tile_count.sum())
     nbytes = (n * RECORD_BYTES + pair_slots * 4 + t * 8
@@ -345,6 +413,350 @@ def phase_timing(params, size: int, device, bg) -> dict:
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
+def grad_errors(got, want) -> dict:
+    """Per output: the largest error and the share of elements over
+    GRAD_REL_TOL, both relative to the output's largest magnitude.  Outputs
+    are dicts by name, or tuples in the order of GRAD_NAMES."""
+    def named(x):
+        return dict(zip(GRAD_NAMES, x)) if isinstance(x, tuple) else x
+
+    def f64(x):
+        return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
+                          np.float64)
+
+    got, want = named(got), named(want)
+    res = {}
+    for name in want:
+        a, b = f64(got[name]), f64(want[name])
+        scale = max(float(np.abs(b).max()), 1e-12)
+        err = np.abs(a - b) / scale
+        res[name] = {"rel_max": float(err.max()),
+                     "over_tol_frac": float((err > GRAD_REL_TOL).mean()),
+                     "abs_max": float(np.abs(a - b).max())}
+    return res
+
+
+def check_grads(name: str, got, want, flip_tolerant: bool) -> float:
+    """Hold gradients against a reference; raise outside the tolerance.
+    Returns the largest absolute error."""
+    errs = grad_errors(got, want)
+    if flip_tolerant:
+        ok = all(e["over_tol_frac"] <= GRAD_OUTLIER_FRAC
+                 and e["rel_max"] <= GRAD_OUTLIER_CAP for e in errs.values())
+    else:
+        ok = all(e["rel_max"] < GRAD_REL_TOL for e in errs.values())
+    log(check=name, ok=ok, flip_tolerant=flip_tolerant, errors=errs)
+    if not ok:
+        raise RuntimeError(f"{name}: gradients outside the tolerance: {errs}")
+    return max(e["abs_max"] for e in errs.values())
+
+
+def backward_inputs(prep, pairs, settings, rng):
+    """Forward outputs (K1) and seeded normal cotangents for a K2 check."""
+    color, dacc, final_t, _ = cuda_rasterize.composite_forward(prep, pairs,
+                                                               settings)
+    dev = prep.xy.device
+    t = settings.band_tiles
+    dl_dpix = torch.tensor(rng.normal(size=(t, 256, 3)), dtype=torch.float32,
+                           device=dev)
+    dl_ddepth = torch.tensor(rng.normal(size=(t, 256)), dtype=torch.float32,
+                             device=dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], dtype=torch.float32, device=dev)
+    return dict(color_pre_bg=color, final_t=final_t, dl_dpix=dl_dpix, bg=bg,
+                depth_acc=dacc, dl_ddepth=dl_ddepth)
+
+
+def k2_vs_plain(name: str, prep, pairs, settings, inputs) -> float:
+    got = cuda_rasterize.composite_backward(prep, pairs, settings, **inputs)
+    want = rasterize.composite_backward(prep, pairs, settings, **inputs)
+    return check_grads(f"{name}: K2 vs plain on the card", got, want,
+                       flip_tolerant=True)
+
+
+def phase_k2_checks(params, size: int, device) -> float:
+    """K2 + epilogue against the stored JAX gradients and its plain version;
+    returns the largest absolute error against the plain version at the
+    close 800x800 view."""
+    log(phase=5)
+    g = np.load(scenes.GATE_NPZ)
+    gate = RenderSettings(width=160, height=160, pair_capacity=1 << 16)
+    prep = convert.prep_from_numpy(g, device)
+    pairs = convert.pairs_from_numpy(g, device)
+    f32 = lambda k: torch.tensor(g[k], device=device)  # noqa: E731
+    inputs = dict(color_pre_bg=f32("color"), final_t=f32("final_t"),
+                  dl_dpix=f32("dl_dpix"),
+                  bg=torch.zeros(3, dtype=torch.float32, device=device),
+                  depth_acc=f32("depth"), dl_ddepth=f32("ct_d"))
+    want = tuple(g[f"g_{k}"] for k in GRAD_NAMES)
+    check_grads("gate: K2 + epilogue vs stored JAX gradients",
+                cuda_rasterize.composite_backward(prep, pairs, gate, **inputs),
+                want, flip_tolerant=False)
+    check_grads("gate: plain version on the card vs stored JAX gradients",
+                rasterize.composite_backward(prep, pairs, gate, **inputs),
+                want, flip_tolerant=False)
+    k2_vs_plain("gate", prep, pairs, gate, inputs)
+
+    rows = [cuda_rasterize.backward_rows(prep, pairs, gate, **inputs)
+            for _ in range(2)]
+    identical = bool(torch.equal(rows[0].view(torch.int32),
+                                 rows[1].view(torch.int32)))
+    log(check="K2 determinism: two runs on the gate", bit_identical=identical,
+        rows=int(rows[0].shape[0]))
+    if not identical:
+        raise RuntimeError("two runs of K2 gave different rows")
+
+    settings, p_np, cam, dl_dpix, dl_ddepth, bg = scenes.early_exit_scene()
+    p = convert.params_from_numpy(p_np, device)
+    prep, pairs = prep_and_pairs(
+        p, dict(world_to_camera=cam["view"], full_proj_matrix=cam["proj"],
+                camera_center=cam["campos"], tan_fovx=cam["tan_fovx"],
+                tan_fovy=cam["tan_fovy"]), settings)
+    starts = pairs.tile_start[pairs.tile_count > 0]
+    color, dacc, final_t, _ = cuda_rasterize.composite_forward(prep, pairs,
+                                                               settings)
+    log(check="early-exit scene", pairs=int(pairs.num_pairs),
+        misaligned_starts=int((starts % 128 != 0).sum()),
+        saturated_pixels=int((final_t < 1e-2).sum()))
+    k2_vs_plain("early-exit scene", prep, pairs, settings, dict(
+        color_pre_bg=color, final_t=final_t,
+        dl_dpix=torch.tensor(dl_dpix, device=device),
+        bg=torch.tensor(bg, device=device), depth_acc=dacc,
+        dl_ddepth=torch.tensor(dl_ddepth, device=device)))
+
+    n = params["positions"].shape[0]
+    full = RenderSettings(width=size, height=size,
+                          pair_capacity=default_pair_capacity(n))
+    prep, pairs = prep_and_pairs(params, scenes.lego_close_view(size), full)
+    occupied = int((pairs.tile_count > 0).sum())
+    log(check="lego close view for K2", tiles=full.num_tiles,
+        occupied_tiles=occupied, pairs=int(pairs.num_pairs))
+    if occupied != full.num_tiles:
+        raise RuntimeError("the full-size Lego view leaves tiles empty")
+    inputs = backward_inputs(prep, pairs, full, np.random.default_rng(11))
+    return k2_vs_plain(f"lego close {size}x{size}", prep, pairs, full, inputs)
+
+
+def lego_models(device, capacity_headroom: float):
+    """(unperturbed, perturbed) Lego models at capacity
+    int(129,053 x headroom), dead slots zero-padded, and the number of live
+    Gaussians."""
+    params = scenes.lego_params()
+    n = params["positions"].shape[0]
+    capacity = int(n * capacity_headroom)
+    rng = np.random.default_rng(PERTURB_SEED)
+    pert = dict(params)
+    pert["positions"] = (params["positions"] + rng.normal(
+        0, PERTURB_POS, (n, 3))).astype(np.float32)
+    shs = params["shs"].reshape(n, -1, 3).copy()
+    shs[:, 0] += rng.normal(0, PERTURB_SH_DC, (n, 3)).astype(np.float32)
+    pert["shs"] = shs
+    pert["opacities"] = (params["opacities"].reshape(n) * rng.uniform(
+        *PERTURB_OPACITY, n)).astype(np.float32)
+    alive = np.ones(n, bool)
+    return tuple(grow_capacity(convert.model_from_numpy(
+        {**x, "alive": alive}, device), capacity)
+        for x in (params, pert)) + (n,)
+
+
+def render_model(model: GaussianModel, cam, size: int, bg):
+    return render_gaussians(
+        bg, model.positions, opacity=model.opacities, scales=model.scales,
+        rotations=model.rotations, viewmatrix=cam["world_to_camera"],
+        projmatrix=cam["full_proj_matrix"], tan_fovx=cam["tan_fovx"],
+        tan_fovy=cam["tan_fovy"], image_height=size, image_width=size,
+        sh=model.shs, degree=3, campos=cam["camera_center"],
+        alive=model.alive, device=bg.device)[0]
+
+
+class TrainRun:
+    """The main path's state: config, settings, cameras, targets, model."""
+
+    def __init__(self, size: int, device):
+        self.cfg = GSConfig()
+        self.size = size
+        self.device = device
+        self.bg = torch.zeros(3, dtype=torch.float32, device=device)
+        self.model0, self.model, self.n_live = lego_models(
+            device, self.cfg.capacity_headroom)
+        cap = round_capacity(self.model.capacity
+                             * self.cfg.pair_capacity_per_gaussian)
+        self.settings = train_settings(self.cfg, size, size, cap, cap)
+        self.cams = [scenes.lego_orbit(2 * math.pi * k / TRAIN_VIEWS, size)
+                     for k in range(TRAIN_VIEWS)]
+        self.cam_t = [camera_tensors(c, device) for c in self.cams]
+        self.targets = [render_model(self.model0, c, size, self.bg)
+                        for c in self.cams]
+        self.held_out = scenes.lego_orbit(HELD_OUT_THETA, size)
+        self.held_out_target = render_model(self.model0, self.held_out, size,
+                                            self.bg)
+        self.adam = init_adam_state(self.model.param_dict())
+        self.rng = np.random.default_rng(self.cfg.seed)
+        self.iteration = 0
+
+    def next_view(self) -> int:
+        return int(self.rng.integers(0, TRAIN_VIEWS))
+
+    def view_args(self, i: int):
+        cam = self.cams[i]
+        return (*self.cam_t[i], cam["tan_fovx"], cam["tan_fovy"],
+                self.targets[i])
+
+    def held_out_loss(self) -> float:
+        return float(l1_loss(render_model(self.model, self.held_out,
+                                          self.size, self.bg),
+                             self.held_out_target))
+
+
+def phase_train(run: TrainRun) -> dict:
+    """The main path: TRAIN_STEPS train steps; returns the launch counts."""
+    log(phase=6, gaussians=run.n_live, capacity=run.model.capacity,
+        pair_capacity=run.settings.pair_capacity,
+        kept_capacity=run.settings.kept_capacity, steps=TRAIN_STEPS,
+        views=TRAIN_VIEWS)
+    before = run.held_out_loss()
+    launches = cuda_rasterize.LAUNCHES
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    losses, counts, views = [], [], []
+    for _ in range(TRAIN_STEPS):
+        i = run.next_view()
+        views.append(i)
+        was = dict(launches)
+        (run.model, run.adam, loss, grad_pos, cnt,
+         run.iteration) = train_step(run.settings, run.cfg, run.model,
+                                     run.adam, *run.view_args(i),
+                                     run.iteration)
+        if any(launches[k] - was[k] != 1 for k in launches):
+            raise RuntimeError(f"step {run.iteration}: launches {was} -> "
+                               f"{dict(launches)}, not one each")
+        losses.append(loss)
+        counts.append(cnt)
+        if not bool(torch.isfinite(grad_pos).all()):
+            raise RuntimeError(f"step {run.iteration}: non-finite position "
+                               "gradient")
+    torch.cuda.synchronize()
+    got = dict(launches)
+    after = run.held_out_loss()
+    losses = torch.stack(losses).cpu().numpy()
+    counts = torch.stack(counts).cpu().numpy()
+    alive = run.model.alive
+    finite_moments = all(bool(torch.isfinite(m[alive]).all())
+                         for m in run.adam.m.values())
+    finite_params = all(bool(torch.isfinite(x[alive]).all())
+                        for x in run.model.param_dict().values())
+    log(path="train", launches=got, views=views, losses=losses.tolist(),
+        max_pairs=int(counts[:, 0].max()), max_kept=int(counts[:, 1].max()),
+        held_out_l1_before=before, held_out_l1_after=after,
+        finite_moments=finite_moments, finite_params=finite_params)
+    if got != {"rasterize_fwd": TRAIN_STEPS, "rasterize_bwd": TRAIN_STEPS}:
+        raise RuntimeError(f"{got} launches for {TRAIN_STEPS} train steps")
+    if (counts[:, 0] > run.settings.pair_capacity).any() \
+            or (counts[:, 1] > run.settings.kept_capacity).any():
+        raise RuntimeError("a train step overflowed its pair capacity")
+    if not (np.isfinite(losses).all() and finite_moments and finite_params):
+        raise RuntimeError("non-finite loss, gradient or parameter")
+    if not after < before:
+        raise RuntimeError(f"held-out L1 did not fall: {before} -> {after}")
+    return got
+
+
+def activated(model: GaussianModel) -> GaussianModel:
+    """The same Gaussians in the official 3DGS storage (log scales, logit
+    opacities); opacities clipped to [1e-3, 0.999] and scales floored at
+    1e-7 so every stored value is finite."""
+    op = torch.clamp(model.opacities, 1e-3, 0.999)
+    return model.replace(scales=torch.log(torch.clamp(model.scales,
+                                                      min=1e-7)),
+                         opacities=torch.log(op / (1.0 - op)))
+
+
+def phase_step_vs_plain(run: TrainRun) -> None:
+    """One step's loss and gradients with K1 + K2 against the plain
+    versions on the card, from the same model, raw/L1 and activated/SSIM."""
+    log(phase=7)
+    i = run.next_view()
+    for name, cfg, model in (
+            ("raw, L1", run.cfg, run.model),
+            ("activated, lambda_dssim 0.2",
+             run.cfg.replace(parameterization="activated", lambda_dssim=0.2),
+             activated(run.model))):
+        args = (run.settings, cfg, model) + run.view_args(i)
+        loss_k, grads_k, _ = loss_and_grads(*args)
+        loss_p, grads_p, _ = loss_and_grads(*args, plain=True)
+        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        log(check=f"step {name}: loss kernels vs plain", view=i,
+            loss=float(loss_k), loss_plain=float(loss_p), rel=rel)
+        if not rel < LOSS_REL_TOL:
+            raise RuntimeError(f"step {name}: loss differs by {rel} relative")
+        check_grads(f"step {name}: gradients kernels vs plain", grads_k,
+                    grads_p, flip_tolerant=True)
+
+
+def phase_train_timing(run: TrainRun) -> dict:
+    """Medians of CUDA-event times of the main path's parts at its shapes
+    (the trained model, the next view of the camera order); K2's bound."""
+    log(phase=8)
+    i = run.next_view()
+    view, proj, campos, tanx, tany, target = run.view_args(i)
+    s, cfg, model = run.settings, run.cfg, run.model
+    train_ms = time_ms(lambda: train_step(s, cfg, model, run.adam, view, proj,
+                                          campos, tanx, tany, target,
+                                          run.iteration), 10)
+    p = {k: x.detach().requires_grad_(True)
+         for k, x in model.param_dict().items()}
+    fwd_args = (s, tanx, tany, cfg.scale_modifier, p["positions"],
+                p["scales"], p["rotations"], p["opacities"], p["shs"], view,
+                proj, campos, run.bg, model.alive)
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: rasterize.render_forward(*fwd_args), 10)
+    image, _, _ = rasterize.render(*fwd_args)
+    loss = l1_loss(image, target)
+    backward_ms = time_ms(lambda: torch.autograd.grad(
+        loss, list(p.values()), retain_graph=True), 10)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    lrs = schedule_lrs(cfg, run.iteration)
+    adam_ms = time_ms(lambda: adam_step(model.param_dict(), grads, run.adam,
+                                        lrs, run.iteration, cfg,
+                                        alive=model.alive), 10)
+
+    with torch.no_grad():
+        (image, _, aux), (prep, pairs, color, dacc) = rasterize._render_fwd(
+            *fwd_args, 0, False)
+    final_t = aux.final_t
+    dl_dpix = rasterize.image_to_tiles(l1_pixel_gradients(image, target), s)
+    inputs = dict(color_pre_bg=color, final_t=final_t, dl_dpix=dl_dpix,
+                  bg=run.bg, depth_acc=dacc,
+                  dl_ddepth=torch.zeros_like(final_t))
+    k2_ms = time_ms(lambda: cuda_rasterize.backward_rows(prep, pairs, s,
+                                                         **inputs), 20)
+    rows = cuda_rasterize.backward_rows(prep, pairs, s, **inputs)
+    epilogue_ms = time_ms(lambda: rasterize.segment_sum_pair_rows(
+        rows, pairs, s), 20)
+    plain_ms = time_ms(lambda: rasterize.composite_backward(
+        prep, pairs, s, **inputs), 3, warmup=1)
+    steps, kept = walk_counts(prep, pairs, s)
+    n = prep.xy.shape[0]
+    t = s.band_tiles
+    slots = int(pairs.tile_count.sum())
+    nbytes = (n * RECORD_BYTES + slots * 4 + t * 8 + t * 256 * PIX_IN_BYTES
+              + slots * ROW_BYTES)
+    ops = steps * FLOPS_PER_STEP + kept * BWD_FLOPS_PER_KEPT
+    flop_ms = ops / PEAK_FP32_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    log(view=i, train_step_ms=train_ms, forward_ms=forward_ms,
+        backward_ms=backward_ms, adam_ms=adam_ms, k2_ms=k2_ms,
+        epilogue_ms=epilogue_ms, plain_ms=plain_ms,
+        pairs=int(pairs.num_pairs), kept_pairs=int(pairs.num_kept),
+        evaluated_steps=steps, kept_steps=kept, bytes=nbytes, operations=ops,
+        flop_bound_ms=flop_ms, byte_bound_ms=byte_ms,
+        bound_share=bound_ms / k2_ms, library_ms=None,
+        library_note="no single PyTorch call computes this backward")
+    return {"ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -354,15 +766,26 @@ def main() -> int:
     phase_build()
     params = convert.params_from_numpy(scenes.lego_params(), device)
     bg = torch.zeros(3, dtype=torch.float32, device=device)
-    max_abs_err = phase_kernel_checks(params, SIZE, device)
-    launches = phase_main_path(params, SIZE, device, bg)
-    times = phase_timing(params, SIZE, device, bg)
-    kernel = {"name": "rasterize_fwd (K1)", "route": "cuda",
-              "source": "gstpu_torch/csrc/rasterize_fwd.cu",
-              "replaces": "gstpu/ops/pallas_rasterize.py:160",
-              "launches": launches, "max_abs_err": max_abs_err,
-              **times, "library_ms": None}
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    k1_err = phase_kernel_checks(params, SIZE, device)
+    phase_main_path(params, SIZE, device, bg)
+    k1_times = phase_timing(params, SIZE, device, bg)
+    k2_err = phase_k2_checks(params, SIZE, device)
+    run = TrainRun(SIZE, device)
+    launches = phase_train(run)
+    phase_step_vs_plain(run)
+    k2_times = phase_train_timing(run)
+    kernels = [
+        {"name": "rasterize_fwd (K1)", "route": "cuda",
+         "source": "gstpu_torch/csrc/rasterize_fwd.cu",
+         "replaces": "gstpu/ops/pallas_rasterize.py:160",
+         "launches": launches["rasterize_fwd"], "max_abs_err": k1_err,
+         **k1_times, "library_ms": None},
+        {"name": "rasterize_bwd (K2)", "route": "cuda",
+         "source": "gstpu_torch/csrc/rasterize_bwd.cu",
+         "replaces": "gstpu/ops/pallas_rasterize.py:442",
+         "launches": launches["rasterize_bwd"], "max_abs_err": k2_err,
+         **k2_times, "library_ms": None}]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,12 @@
 """gstpu_torch: the PyTorch and CUDA port of gstpu's 3D Gaussian Splatting.
 
 It imports ``torch`` and nothing of JAX or of the ``gstpu`` package.  The
-port so far covers the forward render: preprocess, tile binning and forward
-compositing, the latter as a hand-written CUDA kernel for the H100
-(``csrc/rasterize_fwd.cu``) with a plain PyTorch version for CPU tensors.
+port so far covers the forward render (preprocess, tile binning, forward
+compositing) and the single-device training step (the differentiable
+render with its hand-written backward, the losses, Adam, the model).  The
+forward and backward compositing are hand-written CUDA kernels for the H100
+(``csrc/rasterize_fwd.cu``, ``csrc/rasterize_bwd.cu``) with plain PyTorch
+versions for CPU tensors.
 
 Float32 semantics: TF32 is switched off for matmuls and cuDNN convolutions;
 reduced-precision projection was found to stall training in the JAX package.

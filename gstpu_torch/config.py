@@ -36,10 +36,10 @@ class RenderSettings:
     # Gaussians per step of the plain chunked compositing walk.
     chunk: int = 32
     # Replicate the reference's inconsistent forward/backward EWA transforms
-    # (used by the backward pass of a later slice).
+    # and cov3d decomposition in the backward (Q12, Q13; ops/preprocess_bwd).
     parity: bool = True
     # Replicate the reference's constant camera-translation bias in position
-    # gradients (backward pass, later slice).
+    # gradients (Q15; ops/preprocess_bwd.cov2d_backward).
     grad_bias_parity: bool = False
     # Shrink tile rects to each Gaussian's exact alpha >= 1/255 reach
     # (r_cut = sqrt(2 ln(255 op)) sigma_max; see ops/preprocess.py).  Leaves
@@ -92,8 +92,8 @@ class RenderSettings:
 class GSConfig:
     """Training configuration (the reference's effective values).
 
-    Copied field for field from ``gstpu/config.py``; the training slices of
-    the port read it.
+    Copied field for field from ``gstpu/config.py``; the train step
+    (``gstpu_torch/trainer.py``) and Adam read it.
     """
 
     # === training ===

@@ -33,19 +33,19 @@
 // Numerics.  Built without fast math and with -fmad=false, so the per-pair
 // arithmetic rounds like the reference's separate multiplies and adds; expf,
 // not __expf.  The thresholds are the float32 roundings of the double
-// constants that the JAX code compares against.
+// constants that the JAX code compares against.  The per-(pixel, pair) alpha,
+// skip and transmittance arithmetic lives in composite_common.cuh, which the
+// backward kernel (rasterize_bwd.cu) includes too, so both decide the same
+// kept pairs bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kTileSide = 16;
-constexpr int kPixels = kTileSide * kTileSide;  // threads per CTA
-constexpr int kRecord = 10;                     // floats per Gaussian record
-
-constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
-constexpr float kAlphaMax = static_cast<float>(0.99);
-constexpr float kTEps = static_cast<float>(1e-4);
+using gstpu::kPixels;
+using gstpu::kRecord;
 
 __global__ void __launch_bounds__(kPixels)
 rasterize_fwd_kernel(const float* __restrict__ table,
@@ -61,10 +61,8 @@ rasterize_fwd_kernel(const float* __restrict__ table,
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
-  const int tx = tile % grid_x;
-  const int ty = (tile / grid_x) * row_stride + row0;
-  const float pix_x = static_cast<float>(tx * kTileSide + p % kTileSide);
-  const float pix_y = static_cast<float>(ty * kTileSide + p / kTileSide);
+  float pix_x, pix_y;
+  gstpu::pixel_center(tile, p, grid_x, row0, row_stride, &pix_x, &pix_y);
   const int start = tile_start[tile];
   const int count = tile_count[tile];
 
@@ -84,17 +82,12 @@ rasterize_fwd_kernel(const float* __restrict__ table,
     __syncthreads();
 
     for (int j = 0; j < batch && !done; ++j) {
-      const float dx = rec[0][j] - pix_x;
-      const float dy = rec[1][j] - pix_y;
-      const float power =
-          -0.5f * (rec[2][j] * dx * dx + rec[4][j] * dy * dy) -
-          rec[3][j] * dx * dy;
-      if (!(power <= 0.0f)) continue;
-      const float a = rec[5][j] * expf(power);
-      const float alpha = a > kAlphaMax ? kAlphaMax : a;  // NaN stays NaN
-      if (!(alpha >= kAlphaMin)) continue;
-      const float test_t = trans * (1.0f - alpha);
-      if (test_t < kTEps) {
+      gstpu::PairAlpha pa;
+      if (!gstpu::pair_alpha(&rec[0][0], kPixels, j, pix_x, pix_y, &pa))
+        continue;
+      const float alpha = pa.alpha;
+      const float test_t = gstpu::next_transmittance(trans, alpha);
+      if (test_t < gstpu::kTEps) {
         done = true;
         break;
       }

@@ -1,13 +1,21 @@
-"""Forward compositing through the hand-written CUDA kernel.
+"""Forward and backward compositing through the hand-written CUDA kernels.
 
-Counterpart of ``gstpu/ops/pallas_rasterize.py`` (its ``_fwd_kernel``).  The
-kernel source is ``gstpu_torch/csrc/rasterize_fwd.cu``; it is compiled with
-``nvcc`` for sm_90a into ``build/gstpu_torch/`` at first use (again whenever
-the source's hash changes) and bound through ctypes.
+Counterparts of ``gstpu/ops/pallas_rasterize.py``'s two TPU kernels:
 
-``composite_forward`` takes the arguments and returns the outputs of the
-plain version ``ops/rasterize.composite_forward``.  For tensors on the CPU it
-runs that plain version; for CUDA tensors it launches the kernel or raises.
+- K1, ``csrc/rasterize_fwd.cu`` (``_fwd_kernel``), behind
+  ``composite_forward``;
+- K2, ``csrc/rasterize_bwd.cu`` (``_bwd_kernel``), behind
+  ``composite_backward``, whose epilogue (``rasterize.segment_sum_pair_rows``)
+  stays PyTorch as the JAX package's does.
+
+Both include ``csrc/composite_common.cuh``.  Each source is compiled by its
+own ``nvcc`` for sm_90a into ``build/gstpu_torch/`` at first use (all
+started together; again whenever a source, the header or the flags change)
+and bound through ctypes.
+
+The wrappers take the arguments and return the outputs of the plain
+versions in ``ops/rasterize.py``.  For tensors on the CPU they run those
+plain versions; for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -28,13 +36,16 @@ from gstpu_torch.ops import rasterize
 from gstpu_torch.ops.binning import Pairs
 from gstpu_torch.ops.preprocess import PreprocessOut
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rasterize_fwd.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"rasterize_fwd": CSRC / "rasterize_fwd.cu",
+           "rasterize_bwd": CSRC / "rasterize_bwd.cu"}
+HEADER = CSRC / "composite_common.cuh"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gstpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Kernel launches made by composite_forward (one per call on CUDA tensors).
-LAUNCHES = 0
+# Kernel launches made by the wrappers (one per call on CUDA tensors).
+LAUNCHES = {name: 0 for name in SOURCES}
 
 
 def _nvcc() -> str:
@@ -43,44 +54,78 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       + ", ".join(p.name for p in SOURCES.values()))
 
 
-def build() -> tuple[Path, str, float]:
-    """Compile the kernel library if the current source has no build yet.
-
-    Returns (library path, compiler output, seconds spent compiling; 0.0
-    when an existing build was reused).  A failed build raises.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + HEADER.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"rasterize_fwd_{digest}.so"
-    if lib.exists():
-        return lib, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def build() -> dict[str, tuple[Path, str, float]]:
+    """Compile every kernel library whose current source has no build yet,
+    one ``nvcc`` per source, all started together.
+
+    Returns {name: (library path, compiler output, seconds from the start of
+    the builds to the end of this one; 0.0 when an existing build was
+    reused)}.  A failed build raises.
+    """
+    out: dict[str, tuple[Path, str, float]] = {}
+    running = []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr, seconds
+    for name, src in SOURCES.items():
+        lib = _library_path(name)
+        if lib.exists():
+            out[name] = (lib, "", 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, cmd, proc))
+    failed = []
+    for name, lib, tmp, cmd, proc in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, log, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _, _ = build()
+def _library(name: str) -> ctypes.CDLL:
+    path, _, _ = build()[name]
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gstpu_rasterize_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                        ptr, ptr, ptr, ptr, i32, ptr]
-    lib.gstpu_rasterize_fwd.restype = i32
+    if name == "rasterize_fwd":
+        lib.gstpu_rasterize_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                            i32, ptr, ptr, ptr, ptr, i32, ptr]
+        lib.gstpu_rasterize_fwd.restype = i32
+    else:
+        lib.gstpu_rasterize_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                            i32, i32, ptr, i32, ptr]
+        lib.gstpu_rasterize_bwd.restype = i32
     lib.gstpu_cuda_error_string.argtypes = [i32]
     lib.gstpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.gstpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _gaussian_table(prep: PreprocessOut) -> torch.Tensor:
@@ -102,16 +147,10 @@ def _check(name: str, x: torch.Tensor, dtype, device, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def composite_forward(prep: PreprocessOut, pairs: Pairs,
-                      settings: RenderSettings, row0: int = 0):
-    """Forward compositing; same contract as ``rasterize.composite_forward``.
-
-    Returns color (T,256,3), inverse depth (T,256), final transmittance
-    (T,256) and n_contrib (T,256) int32 for the T tiles of the band.
-    """
-    global LAUNCHES
-    if prep.xy.device.type == "cpu":
-        return rasterize.composite_forward(prep, pairs, settings, row0=row0)
+def _check_inputs(prep: PreprocessOut, pairs: Pairs,
+                  settings: RenderSettings) -> torch.device:
+    """Device of the inputs of a kernel launch; raises on a tensor it does
+    not take."""
     dev = prep.xy.device
     if dev.type != "cuda":
         raise ValueError(f"no compositing kernel for device {dev}")
@@ -128,7 +167,20 @@ def composite_forward(prep: PreprocessOut, pairs: Pairs,
         raise ValueError("pairs.gauss_id must be 1-D")
     _check("pairs.tile_start", pairs.tile_start, torch.int32, dev, (t,))
     _check("pairs.tile_count", pairs.tile_count, torch.int32, dev, (t,))
+    return dev
 
+
+def composite_forward(prep: PreprocessOut, pairs: Pairs,
+                      settings: RenderSettings, row0: int = 0):
+    """Forward compositing; same contract as ``rasterize.composite_forward``.
+
+    Returns color (T,256,3), inverse depth (T,256), final transmittance
+    (T,256) and n_contrib (T,256) int32 for the T tiles of the band.
+    """
+    if prep.xy.device.type == "cpu":
+        return rasterize.composite_forward(prep, pairs, settings, row0=row0)
+    dev = _check_inputs(prep, pairs, settings)
+    t = settings.band_tiles
     table = _gaussian_table(prep)
     color = torch.empty((t, TILE_PIXELS, 3), dtype=torch.float32, device=dev)
     dacc = torch.empty((t, TILE_PIXELS), dtype=torch.float32, device=dev)
@@ -136,18 +188,88 @@ def composite_forward(prep: PreprocessOut, pairs: Pairs,
     n_contrib = torch.empty((t, TILE_PIXELS), dtype=torch.int32, device=dev)
     if t == 0:
         return color, dacc, final_t, n_contrib
-    lib = _library()
+    lib = _library("rasterize_fwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gstpu_rasterize_fwd(
         table.data_ptr(), pairs.gauss_id.data_ptr(),
         pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
         t, settings.grid_x, int(row0), settings.row_stride,
         color.data_ptr(), dacc.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), dev.index if dev.index is not None
-        else torch.cuda.current_device(), stream)
-    if err != 0:
-        msg = lib.gstpu_cuda_error_string(err).decode()
-        raise RuntimeError(f"rasterize_fwd launch failed: CUDA error {err} "
-                           f"({msg})")
-    LAUNCHES += 1
+        n_contrib.data_ptr(), _device_index(dev), stream)
+    _raise_on_error(lib, "rasterize_fwd", err)
+    LAUNCHES["rasterize_fwd"] += 1
     return color, dacc, final_t, n_contrib
+
+
+def backward_rows(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
+                  color_pre_bg, final_t, dl_dpix, bg, row0: int = 0,
+                  depth_acc=None, dl_ddepth=None) -> torch.Tensor:
+    """Launch K2 on CUDA tensors: the (K2 + 1, 10) per-pair gradient rows
+    (fields ``rasterize.PAIR_ROW_FIELDS``) that ``composite_backward`` sums
+    per Gaussian.  Rows of pairs past a tile's early exit, of slots of no
+    tile, and the last row, are zero.  Arguments as ``composite_backward``.
+    """
+    dev = _check_inputs(prep, pairs, settings)
+    t = settings.band_tiles
+    _check("final_t", final_t, torch.float32, dev, (t, TILE_PIXELS))
+    for name, x in (("color_pre_bg", color_pre_bg), ("dl_dpix", dl_dpix)):
+        if x.device != dev or x.dtype != torch.float32 \
+                or tuple(x.shape) != (t, TILE_PIXELS, 3):
+            raise ValueError(f"{name}: expected float32 {(t, TILE_PIXELS, 3)}"
+                             f" on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+    if bg.device != dev or tuple(bg.shape) != (3,):
+        raise ValueError(f"bg: expected (3,) on {dev}, got "
+                         f"{tuple(bg.shape)} on {bg.device}")
+    if dl_ddepth is None:
+        dl_ddepth = torch.zeros_like(final_t)
+        depth_acc = torch.zeros_like(final_t)
+    for name, x in (("depth_acc", depth_acc), ("dl_ddepth", dl_ddepth)):
+        if x.device != dev or x.dtype != torch.float32 \
+                or tuple(x.shape) != (t, TILE_PIXELS):
+            raise ValueError(f"{name}: expected float32 {(t, TILE_PIXELS)} "
+                             f"on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+
+    ctot_dot = torch.sum(color_pre_bg * dl_dpix, dim=-1) + depth_acc * dl_ddepth
+    bg_dot = torch.sum(bg[None, None, :] * dl_dpix, dim=-1)
+    pix_in = torch.stack([ctot_dot, bg_dot, final_t, dl_dpix[:, :, 0],
+                          dl_dpix[:, :, 1], dl_dpix[:, :, 2], dl_ddepth],
+                         dim=1).contiguous()                   # (T, 7, 256)
+    table = _gaussian_table(prep)
+    k2 = pairs.gauss_id.shape[0]
+    rows = torch.zeros((k2 + 1, len(rasterize.PAIR_ROW_FIELDS)),
+                       dtype=torch.float32, device=dev)
+    if t == 0:
+        return rows
+    lib = _library("rasterize_bwd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gstpu_rasterize_bwd(
+        table.data_ptr(), pairs.gauss_id.data_ptr(),
+        pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
+        pix_in.data_ptr(), t, settings.grid_x, int(row0),
+        settings.row_stride, rows.data_ptr(), _device_index(dev), stream)
+    _raise_on_error(lib, "rasterize_bwd", err)
+    LAUNCHES["rasterize_bwd"] += 1
+    return rows
+
+
+def composite_backward(prep: PreprocessOut, pairs: Pairs,
+                       settings: RenderSettings, color_pre_bg, final_t,
+                       dl_dpix, bg, row0: int = 0, depth_acc=None,
+                       dl_ddepth=None):
+    """Backward compositing; same contract as
+    ``rasterize.composite_backward``: K2 (``backward_rows``), then the
+    epilogue ``rasterize.segment_sum_pair_rows``.
+
+    Returns (dL_dcolor (N,3), dL_dmean2d_ndc (N,2), dL_dconic (N,3),
+    dL_dopacity (N,), dL_dinvdepth (N,)).
+    """
+    if prep.xy.device.type == "cpu":
+        return rasterize.composite_backward(
+            prep, pairs, settings, color_pre_bg, final_t, dl_dpix, bg,
+            row0=row0, depth_acc=depth_acc, dl_ddepth=dl_ddepth)
+    rows = backward_rows(prep, pairs, settings, color_pre_bg, final_t,
+                         dl_dpix, bg, row0=row0, depth_acc=depth_acc,
+                         dl_ddepth=dl_ddepth)
+    return rasterize.segment_sum_pair_rows(rows, pairs, settings)

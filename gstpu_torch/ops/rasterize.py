@@ -1,15 +1,26 @@
-"""Tile-based alpha compositing, forward half, on torch tensors.
+"""Tile-based alpha compositing and the differentiable render, on torch
+tensors.
 
-Port of the forward half of ``gstpu/ops/rasterize.py``.  ``composite_forward``
-is the chunked front-to-back walk: with per-pair effective alphas (zero where
-the reference ``continue``s: ``power > 0`` or ``alpha < 1/255``), the running
-transmittance is a cumulative product, and the reference's break at the first
-would-be transmittance below 1e-4 becomes the per-pixel ``done`` flag.  It is
-the plain version of the CUDA kernel in ``ops/cuda_rasterize.py`` and is what
-runs for tensors on the CPU.
+Port of ``gstpu/ops/rasterize.py``.
 
-``render_forward`` is the single-device forward render: preprocess, binning,
-compositing, background, and tiles back to an image.
+- ``composite_forward`` is the chunked front-to-back walk: with per-pair
+  effective alphas (zero where the reference ``continue``s: ``power > 0`` or
+  ``alpha < 1/255``), the running transmittance is a cumulative product, and
+  the reference's break at the first would-be transmittance below 1e-4
+  becomes the per-pixel ``done`` flag.
+- ``composite_backward`` is its adjoint in forward order with a running
+  prefix of ``w * cdot`` in place of the reference's reverse replay, and
+  ``index_add_`` for the per-Gaussian sums.
+
+Both are the plain versions of the CUDA kernels in ``ops/cuda_rasterize.py``
+and are what runs for tensors on the CPU.  ``segment_sum_pair_rows`` is the
+epilogue that turns the backward kernel's per-pair rows into per-Gaussian
+gradients.
+
+``render`` is the single-device differentiable render (a
+``torch.autograd.Function``): preprocess, binning, compositing, background and
+tiles back to an image, with the hand-written backward of the JAX package's
+custom VJP.  ``render_forward`` runs the same forward without autograd.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from gstpu_torch.config import RenderSettings, TILE_PIXELS, TILE_X, TILE_Y
+from gstpu_torch.ops import preprocess_bwd
 from gstpu_torch.ops.binning import Pairs, build_pairs
 from gstpu_torch.ops.preprocess import PreprocessOut, preprocess
 
@@ -105,8 +117,9 @@ def _chunk_pair_data(pairs: Pairs, chunk_idx: int, chunk: int):
 def _chunk_alpha(prep: PreprocessOut, gid, pvalid, pixf_x, pixf_y):
     """Per-(tile, pixel, pair) alpha with the reference's individual skips.
 
-    Returns (alpha_eff, indiv): the alpha where the pair passes
-    ``power <= 0`` and ``alpha >= 1/255`` (else 0), and that pass mask.
+    Returns (alpha_eff, indiv, g, dx, dy, (ca, cb, cc), op): the alpha where
+    the pair passes ``power <= 0`` and ``alpha >= 1/255`` (else 0), that
+    pass mask, and the Gaussian geometry the backward differentiates.
     """
     xy = prep.xy[gid]                                            # (T, C, 2)
     con = prep.conic[gid]                                        # (T, C, 3)
@@ -118,10 +131,11 @@ def _chunk_alpha(prep: PreprocessOut, gid, pvalid, pixf_x, pixf_y):
     cc = con[:, None, :, 2]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
     g = torch.exp(torch.clamp(power, max=0.0))
-    alpha = torch.clamp(op[:, None, :] * g, max=ALPHA_MAX)
+    op = op[:, None, :]
+    alpha = torch.clamp(op * g, max=ALPHA_MAX)
     indiv = pvalid[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
     alpha_eff = torch.where(indiv, alpha, 0.0)
-    return alpha_eff, indiv
+    return alpha_eff, indiv, g, dx, dy, (ca, cb, cc), op
 
 
 def composite_forward(prep: PreprocessOut, pairs: Pairs,
@@ -153,7 +167,8 @@ def composite_forward(prep: PreprocessOut, pairs: Pairs,
     i = 0
     while i < n_chunks and not bool(done.all()):
         gid, pvalid, pos_in_tile = _chunk_pair_data(pairs, i, chunk)
-        alpha_eff, indiv = _chunk_alpha(prep, gid, pvalid, pixf_x, pixf_y)
+        alpha_eff, indiv = _chunk_alpha(prep, gid, pvalid, pixf_x,
+                                        pixf_y)[:2]
         one_m = 1.0 - alpha_eff
         p_incl = trans[:, :, None] * torch.cumprod(one_m, dim=-1)  # (T,P,C)
         t_ex = p_incl / one_m                                      # 1-a >= 0.01
@@ -176,6 +191,162 @@ def composite_forward(prep: PreprocessOut, pairs: Pairs,
                              .to(torch.int32))
         i += 1
     return color, dacc, trans, last
+
+
+def composite_backward(prep: PreprocessOut, pairs: Pairs,
+                       settings: RenderSettings, color_pre_bg, final_t,
+                       dl_dpix, bg, row0: int = 0, depth_acc=None,
+                       dl_ddepth=None):
+    """Adjoint of compositing in forward order (plain version).
+
+    ``dl_dpix``: (T, P, 3) pixel-color cotangents.  Returns per-Gaussian
+    gradients (dL_dcolor (N,3), dL_dmean2d_ndc (N,2), dL_dconic (N,3),
+    dL_dopacity (N,), dL_dinvdepth (N,)).  ``dL_dmean2d_ndc`` carries the
+    reference's ``0.5 * W`` and ``0.5 * H`` NDC scaling; the conic's b
+    gradient has the reference's half convention (``cov2d_backward`` doubles
+    it back).
+
+    ``depth_acc``/``dl_ddepth`` (both (T, P)) enable the depth gradient: the
+    inverse-depth image is a fourth composited channel with no background.
+    """
+    n = prep.xy.shape[0]
+    dev = prep.xy.device
+    chunk = settings.chunk
+    pixf_x, pixf_y = _tile_pixel_coords(settings, row0, dev)
+
+    with_depth = dl_ddepth is not None
+    ctot_dot = torch.sum(color_pre_bg * dl_dpix, dim=-1)              # (T,P)
+    if with_depth:
+        ctot_dot = ctot_dot + depth_acc * dl_ddepth
+    bg_dot = torch.sum(bg[None, None, :] * dl_dpix, dim=-1)           # (T,P)
+    ddelx_dx = 0.5 * settings.width
+    ddely_dy = 0.5 * settings.height
+    inv_depth = 1.0 / torch.where(prep.depth == 0.0, 1.0, prep.depth)
+
+    t = settings.band_tiles
+    f32 = dict(dtype=torch.float32, device=dev)
+    trans = torch.ones((t, TILE_PIXELS), **f32)
+    done = torch.zeros((t, TILE_PIXELS), dtype=torch.bool, device=dev)
+    prefix_u = torch.zeros((t, TILE_PIXELS), **f32)
+    # one spare row: pairs no pixel kept are scattered there and dropped
+    d_color = torch.zeros((n + 1, 3), **f32)
+    d_mean2d = torch.zeros((n + 1, 2), **f32)
+    d_conic = torch.zeros((n + 1, 3), **f32)
+    d_opac = torch.zeros((n + 1,), **f32)
+    d_invd = torch.zeros((n + 1,), **f32)
+    n_chunks = int(((pairs.tile_count + chunk - 1) // chunk).max()) if t else 0
+
+    i = 0
+    while i < n_chunks and not bool(done.all()):
+        gid, pvalid, _ = _chunk_pair_data(pairs, i, chunk)
+        alpha_eff, indiv, g, dx, dy, (ca, cb, cc), op = _chunk_alpha(
+            prep, gid, pvalid, pixf_x, pixf_y)
+        one_m = 1.0 - alpha_eff
+        p_incl = trans[:, :, None] * torch.cumprod(one_m, dim=-1)
+        t_ex = p_incl / one_m
+        kept = indiv & (p_incl >= T_EPS) & ~done[:, :, None]
+        w = torch.where(kept, alpha_eff * t_ex, 0.0)
+
+        # the channel and pixel sums are written out, not einsum: a BLAS
+        # call may order its additions by the data's alignment, so the
+        # result would change from run to run
+        col = prep.rgb[gid]                                       # (T,C,3)
+        cdot = torch.sum(col[:, None] * dl_dpix[:, :, None], dim=-1)  # (T,P,C)
+        if with_depth:
+            cdot = cdot + inv_depth[gid][:, None, :] * dl_ddepth[:, :, None]
+        u = w * cdot
+        prefix_u_incl = prefix_u[:, :, None] + torch.cumsum(u, dim=-1)
+
+        inv_one_m = 1.0 / one_m
+        dl_dalpha = (cdot * t_ex
+                     - (ctot_dot[:, :, None] - prefix_u_incl) * inv_one_m
+                     - (final_t[:, :, None] * inv_one_m) * bg_dot[:, :, None])
+        dl_dalpha = torch.where(kept, dl_dalpha, 0.0)
+
+        # per-pair sums over the tile's pixels
+        d_color_pair = torch.sum(w[..., None] * dl_dpix[:, :, None], dim=1)
+        dl_dg = op * dl_dalpha                                    # (T,P,C)
+        gdx = g * dx
+        gdy = g * dy
+        dg_ddelx = -gdx * ca - gdy * cb
+        dg_ddely = -gdy * cc - gdx * cb
+        d_mx = torch.sum(dl_dg * dg_ddelx, dim=1) * ddelx_dx      # (T,C)
+        d_my = torch.sum(dl_dg * dg_ddely, dim=1) * ddely_dy
+        d_ca = torch.sum(-0.5 * gdx * dx * dl_dg, dim=1)
+        d_cb = torch.sum(-0.5 * gdx * dy * dl_dg, dim=1)
+        d_cc = torch.sum(-0.5 * gdy * dy * dl_dg, dim=1)
+        d_op = torch.sum(torch.where(kept, g, 0.0) * dl_dalpha, dim=1)
+
+        anyk = torch.any(kept, dim=1)                             # (T,C)
+        gid_s = torch.where(anyk, gid, n).reshape(-1)
+        d_color.index_add_(0, gid_s, d_color_pair.reshape(-1, 3))
+        d_mean2d.index_add_(0, gid_s,
+                            torch.stack([d_mx, d_my], dim=-1).reshape(-1, 2))
+        d_conic.index_add_(0, gid_s, torch.stack([d_ca, d_cb, d_cc],
+                                                 dim=-1).reshape(-1, 3))
+        d_opac.index_add_(0, gid_s, d_op.reshape(-1))
+        if with_depth:
+            d_invd_pair = torch.sum(w * dl_ddepth[:, :, None], dim=1)
+            d_invd.index_add_(0, gid_s, d_invd_pair.reshape(-1))
+
+        # carry updates (identical to the forward)
+        p_kept = torch.where(kept, p_incl, torch.inf)
+        p_last = torch.amin(p_kept, dim=-1)
+        trans = torch.where(torch.isfinite(p_last), p_last, trans)
+        done = done | torch.any(indiv & (p_incl < T_EPS), dim=-1)
+        prefix_u = prefix_u + torch.sum(u, dim=-1)
+        i += 1
+    return d_color[:n], d_mean2d[:n], d_conic[:n], d_opac[:n], d_invd[:n]
+
+
+# Fields of a per-pair gradient row of the backward kernel, in order.
+PAIR_ROW_FIELDS = ("mean2d_x", "mean2d_y", "conic_a", "conic_b", "conic_c",
+                   "opacity", "color_r", "color_g", "color_b", "invdepth")
+
+
+# Slots past the last Gaussian's segment are summed in pieces of at most
+# this many rows (see segment_sum_pair_rows).
+_TAIL_SEGMENT = 1024
+
+
+def segment_sum_pair_rows(rows: torch.Tensor, pairs: Pairs,
+                          settings: RenderSettings):
+    """Epilogue of the backward kernel: per-pair rows to per-Gaussian sums.
+
+    ``rows``: (K2 + 1, 10) f32, one row per sorted pair slot (fields
+    ``PAIR_ROW_FIELDS``) and a last row of zeros; rows the kernel did not
+    write (past a tile's early exit, slots of no tile) must be zero.  The
+    rows are gathered to Gaussian-major order by ``gm_pos`` (slots past the
+    kept slice read the zero row) and summed per Gaussian over the
+    ``gauss_cum`` segments by ``torch.segment_reduce``, which adds each
+    segment's rows one after another in slot order, one thread per segment
+    and field on the card: deterministic, and without the cancellation of a
+    difference of running sums.  The slots past the last segment (invalid
+    pairs, zero rows) form segments of at most 1024 rows, so no thread walks
+    the whole unused capacity.  Returns the five gradients of
+    ``composite_backward``.
+    """
+    n = pairs.gauss_cum.shape[0]
+    k2 = pairs.gauss_id.shape[0]
+    if rows.shape != (k2 + 1, len(PAIR_ROW_FIELDS)):
+        raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
+                         f"{(k2 + 1, len(PAIR_ROW_FIELDS))}")
+    k_full = pairs.gm_pos.shape[0]
+    src = torch.clamp(pairs.gm_pos, max=k2).long()
+    rows_gm = rows[src]                                       # (K, 10)
+    ends = torch.clamp(pairs.gauss_cum.long(), 0, k_full)
+    lengths = torch.diff(ends, prepend=ends.new_zeros(1))
+    n_tail = -(-k_full // _TAIL_SEGMENT)
+    tail = torch.clamp(
+        (k_full - ends[-1:]) - _TAIL_SEGMENT * torch.arange(
+            n_tail, device=ends.device), 0, _TAIL_SEGMENT)
+    acc = torch.segment_reduce(rows_gm, "sum",
+                               lengths=torch.cat([lengths, tail]),
+                               axis=0)[:n]
+    d_mean2d = acc[:, 0:2] * torch.tensor(
+        [0.5 * settings.width, 0.5 * settings.height], dtype=acc.dtype,
+        device=acc.device)
+    return acc[:, 6:9], d_mean2d, acc[:, 2:5], acc[:, 5], acc[:, 9]
 
 
 def tiles_to_image(tiled: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
@@ -204,18 +375,22 @@ def image_to_tiles(img: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
     return out.transpose(1, 2).reshape((gy * gx, TILE_PIXELS) + trailing)
 
 
-def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
-                   scale_modifier: float, means, scales, rotations, opacities,
-                   shs, view, proj, campos, bg, alive=None, row0: int = 0):
-    """Forward render: returns (image (H,W,3), depth (H,W), RenderAux).
-
-    The single-device forward of the JAX package's custom-VJP ``render``.
-    Compositing runs the CUDA kernel for tensors on a CUDA device and the
-    plain version for tensors on the CPU.
-    """
-    # cuda_rasterize imports this module for the plain version
+def _compositing(plain: bool):
+    """(composite_forward, composite_backward) of a render: the kernel
+    wrappers (which run the plain versions for CPU tensors), or the plain
+    versions on any device when the caller asks for them."""
+    if plain:
+        return composite_forward, composite_backward
+    # cuda_rasterize imports this module for the plain versions
     from gstpu_torch.ops import cuda_rasterize
+    return cuda_rasterize.composite_forward, cuda_rasterize.composite_backward
 
+
+def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
+                scale_modifier: float, means, scales, rotations, opacities,
+                shs, view, proj, campos, bg, alive, row0: int, plain: bool):
+    """Forward render; returns ((image, depth, RenderAux), (prep, pairs,
+    color, dacc)), the second tuple being what the backward needs."""
     if settings.shard_axis is not None:
         raise NotImplementedError("the sharded render is not ported yet")
     prep = preprocess(means, scales, rotations, opacities, shs,
@@ -236,7 +411,7 @@ def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                         cull_tcut=cull_tcut, row0=row0,
                         row_stride=settings.row_stride,
                         kept_capacity=settings.kept_capacity)
-    color, dacc, final_t, n_contrib = cuda_rasterize.composite_forward(
+    color, dacc, final_t, n_contrib = _compositing(plain)[0](
         prep, pairs, settings, row0=row0)
 
     image_tiles = color + final_t[:, :, None] * bg[None, None, :]
@@ -245,4 +420,109 @@ def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     aux = RenderAux(radii=prep.radii, num_pairs=pairs.num_pairs,
                     final_t=final_t, n_contrib=n_contrib, xy=prep.xy,
                     num_kept=pairs.num_kept)
-    return image, depth, aux
+    return (image, depth, aux), (prep, pairs, color, dacc)
+
+
+def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
+                   scale_modifier: float, means, scales, rotations, opacities,
+                   shs, view, proj, campos, bg, alive=None, row0: int = 0):
+    """Forward render without autograd: returns (image (H,W,3), depth (H,W),
+    RenderAux), the forward of ``render``.
+
+    Compositing runs the CUDA kernel for tensors on a CUDA device and the
+    plain version for tensors on the CPU.
+    """
+    return _render_fwd(settings, tan_fovx, tan_fovy, scale_modifier, means,
+                       scales, rotations, opacities, shs, view, proj, campos,
+                       bg, alive, row0, plain=False)[0]
+
+
+_N_PREP = len(PreprocessOut._fields)
+_N_PAIRS = len(Pairs._fields)
+
+
+class _Render(torch.autograd.Function):
+    """Custom-VJP render (``gstpu/ops/rasterize.py::render``,
+    ``_render_fwd`` and ``_render_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, settings, tan_fovx, tan_fovy, scale_modifier, row0,
+                plain, means, scales, rotations, opacities, shs, view, proj,
+                campos, bg, alive):
+        (image, depth, aux), (prep, pairs, color, dacc) = _render_fwd(
+            settings, tan_fovx, tan_fovy, scale_modifier, means, scales,
+            rotations, opacities, shs, view, proj, campos, bg, alive, row0,
+            plain)
+        ctx.static = (settings, tan_fovx, tan_fovy, scale_modifier, row0,
+                      plain)
+        ctx.save_for_backward(*prep, *pairs, color, dacc, aux.final_t, means,
+                              scales, rotations, shs, view, proj, campos, bg)
+        ctx.mark_non_differentiable(*aux)
+        return (image, depth) + tuple(aux)
+
+    @staticmethod
+    def backward(ctx, ct_image, ct_depth, *_aux_cotangents):
+        settings, tan_fovx, tan_fovy, scale_modifier, row0, plain = ctx.static
+        saved = ctx.saved_tensors
+        prep = PreprocessOut(*saved[:_N_PREP])
+        pairs = Pairs(*saved[_N_PREP:_N_PREP + _N_PAIRS])
+        (color, dacc, final_t, means, scales, rotations, shs, view, proj,
+         campos, bg) = saved[_N_PREP + _N_PAIRS:]
+
+        dl_dpix = image_to_tiles(ct_image, settings)
+        # the inverse-depth image is a fourth composited channel with no
+        # background term (the reference has no depth backward)
+        dl_ddepth = image_to_tiles(ct_depth, settings)
+        (d_color, d_mean2d, d_conic, d_opac,
+         d_invd) = _compositing(plain)[1](
+            prep, pairs, settings, color, final_t, dl_dpix, bg, row0=row0,
+            depth_acc=dacc, dl_ddepth=dl_ddepth)
+
+        focal_x = settings.width / (2.0 * tan_fovx)
+        focal_y = settings.height / (2.0 * tan_fovy)
+        # preprocess adjoint chain: cov2d -> projection -> SH -> cov3d, with
+        # dL/dmeans gathered from four sources
+        dmean_cov, dcov3d = preprocess_bwd.cov2d_backward(
+            means, prep.cov3d, prep.radii, focal_x, focal_y, tan_fovx,
+            tan_fovy, view, d_conic, parity=settings.parity,
+            translation_bias=settings.grad_bias_parity)
+        dmean_proj = preprocess_bwd.projection_backward(
+            means, prep.radii, proj, d_mean2d)
+        dsh, dmean_sh = preprocess_bwd.sh_backward(
+            means, shs, prep.radii, campos, prep.clamped, d_color,
+            settings.sh_degree)
+        dscale, drot = preprocess_bwd.cov3d_backward(
+            scales, rotations, prep.radii, scale_modifier, dcov3d,
+            parity=settings.parity)
+        # depth chain: inv_depth = 1/t_z, t_z = [p,1] @ view (row vector), so
+        # dL/dp_j += -inv_depth^2 * dL/dinv_depth * view[j, 2]
+        inv_depth = 1.0 / torch.where(prep.depth == 0.0, 1.0, prep.depth)
+        d_tz = -inv_depth * inv_depth * d_invd * (prep.radii > 0).to(
+            means.dtype)
+        dmean_depth = d_tz[:, None] * view[None, :3, 2]
+        dmean = dmean_cov + dmean_proj + dmean_sh + dmean_depth
+        # settings, tan_fovx, tan_fovy, scale_modifier, row0, plain; the
+        # camera, background and alive mask are inputs, not parameters
+        return ((None,) * 6 + (dmean, dscale, drot, d_opac, dsh)
+                + (None,) * 5)
+
+
+def render(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
+           scale_modifier: float, means, scales, rotations, opacities, shs,
+           view, proj, campos, bg, alive=None, row0: int = 0,
+           plain: bool = False):
+    """Differentiable render: returns (image (H,W,3), depth (H,W), aux).
+
+    Gradients flow to ``means``, ``scales``, ``rotations``, ``opacities``
+    and ``shs`` through the hand-written backward: compositing adjoint (the
+    CUDA kernel K2 and its epilogue for CUDA tensors, the plain version for
+    CPU tensors), then the preprocess adjoint chain with the reference's
+    quirks under ``settings.parity``.  ``alive`` is an (N,) bool mask of
+    capacity padding.  ``plain=True`` runs the plain PyTorch compositing on
+    any device, to check the kernels against it.
+    """
+    out = _Render.apply(settings, float(tan_fovx), float(tan_fovy),
+                        float(scale_modifier), int(row0), bool(plain), means,
+                        scales, rotations, opacities, shs, view, proj, campos,
+                        bg, alive)
+    return out[0], out[1], RenderAux(*out[2:])

@@ -4,6 +4,11 @@
   ``tests/test_pallas.py::test_pallas_forward_exact_span_boundaries``
   (seed 9): per-tile counts at the chunk and block edges, empty tiles, a
   2048-pair tile.
+- ``early_exit_scene``: the high-opacity scene of
+  ``tests/test_pallas.py::test_pallas_backward_early_exit_and_boundary_merge``
+  (seed 7): most tiles saturate and exit early, and tile starts are not
+  multiples of 128.  ``example_camera`` and ``random_scene`` are copies of
+  the JAX package's ``tests/scenes.py``.
 - ``lego_params`` / ``lego_orbit``: the trained Lego point cloud in
   ``assets/lego_trained.ply`` seen from orbit cameras with Lego's field of
   view, so a render needs no dataset.  ``lego_close_view`` is a camera close
@@ -20,7 +25,8 @@ from pathlib import Path
 import numpy as np
 
 from gstpu_torch.config import RenderSettings
-from gstpu_torch.utils.camera import orbit_camera
+from gstpu_torch.utils.camera import (orbit_camera, projection_matrix,
+                                     world_to_view)
 from gstpu_torch.utils.ply import load_ply, render_space_params
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -96,3 +102,58 @@ def lego_close_view(size: int):
     """Camera dict of the close Lego view (every tile occupied at 800x800)."""
     return orbit_camera(CLOSE_VIEW["theta"], CLOSE_VIEW["radius"],
                         CLOSE_VIEW["height"], size, LEGO_CAMERA_ANGLE_X)
+
+
+def example_camera(width=128, height=128, fovx=45.0, fovy=45.0,
+                   znear=0.01, zfar=100.0):
+    """The reference smoke-test camera, scaled down.  Like the reference it
+    passes fovx=45.0 *radians* to tan(fov/2)."""
+    T = np.array([0, 0, 5], dtype=np.float32)
+    R = np.array([[1, 0, 0], [0, 1, 0], [0, 0, -1]], dtype=np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3] = R
+    w2c[:3, 3] = T
+    w2c = w2c.T
+    view = world_to_view(R=R, t=T)
+    proj = projection_matrix(fovx=fovx, fovy=fovy, znear=znear, zfar=zfar).T
+    full_proj = (w2c @ proj).astype(np.float32)
+    campos = np.linalg.inv(w2c)[3, :3].astype(np.float32)
+    return {"view": view.astype(np.float32), "proj": full_proj,
+            "campos": campos, "tan_fovx": math.tan(fovx * 0.5),
+            "tan_fovy": math.tan(fovy * 0.5), "width": width,
+            "height": height}
+
+
+def random_scene(rng: np.random.Generator, n=64, extent=3.0, z_center=-10.0,
+                 opacity_range=(0.2, 0.9), scale_range=(0.1, 0.8)):
+    """Random anisotropic Gaussians in front of the example camera:
+    (positions, shs (n,16,3), scales, rotations, opacities)."""
+    pts = np.empty((n, 3), np.float32)
+    pts[:, 0] = rng.uniform(-extent, extent, n)
+    pts[:, 1] = rng.uniform(-extent, extent, n)
+    pts[:, 2] = rng.uniform(z_center - 2.0, z_center + 2.0, n)
+    shs = rng.normal(0.0, 0.3, (n, 16, 3)).astype(np.float32)
+    shs[:, 0] = rng.uniform(-0.5, 1.5, (n, 3))
+    opacities = rng.uniform(*opacity_range, n).astype(np.float32)
+    scales = rng.uniform(*scale_range, (n, 3)).astype(np.float32)
+    q = rng.normal(0, 1, (n, 4)).astype(np.float32)
+    rotations = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return pts, shs.astype(np.float32), scales, rotations, opacities
+
+
+def early_exit_scene():
+    """(settings, params, camera, dl_dpix (T,256,3), dl_ddepth (T,256), bg)
+    of the high-opacity early-exit scene, 64x64, 120 Gaussians."""
+    rng = np.random.default_rng(7)
+    size = 64
+    cam = example_camera(width=size, height=size)
+    pts, shs, scales, rotations, opacities = random_scene(
+        rng, n=120, opacity_range=(0.85, 1.0))
+    settings = RenderSettings(width=size, height=size, pair_capacity=1 << 13)
+    dl_dpix = rng.normal(0, 1, (settings.num_tiles, 256, 3)).astype(
+        np.float32)
+    dl_ddepth = rng.normal(0, 1, (settings.num_tiles, 256)).astype(np.float32)
+    params = dict(positions=pts, scales=scales, rotations=rotations,
+                  opacities=opacities, shs=shs)
+    bg = np.asarray([0.1, 0.2, 0.3], np.float32)
+    return settings, params, cam, dl_dpix, dl_ddepth, bg

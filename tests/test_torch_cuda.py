@@ -1,5 +1,9 @@
-"""Kernel K1 (``gstpu_torch/csrc/rasterize_fwd.cu``) on a CUDA card against
-its plain PyTorch version, with the thresholds of ``chip_smoke.compare``.
+"""Kernels K1 (``gstpu_torch/csrc/rasterize_fwd.cu``) and K2
+(``gstpu_torch/csrc/rasterize_bwd.cu``) on a CUDA card against their plain
+PyTorch versions, with the thresholds of ``chip_smoke``: K1 by
+``chip_smoke.compare``; K2 plus its epilogue within 1e-3 of each output's
+largest magnitude (the compiled gate's) of the stored JAX gradients, and
+flip-tolerant against the plain version on the card.
 
 This file imports nothing of JAX, so it runs on a machine without it once
 ``tests/conftest.py`` (which imports jax) is left out:
@@ -13,16 +17,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare
+from chip_smoke import GRAD_NAMES, check_grads, compare
 from gstpu_torch import convert, scenes
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize
 from gstpu_torch.ops import rasterize
+from gstpu_torch.ops.binning import build_pairs
+from gstpu_torch.ops.preprocess import preprocess
 
 
 def _cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no CPU form")
+        pytest.skip("needs a CUDA card: K1 and K2 have no CPU form")
     return torch.device("cuda")
 
 
@@ -41,13 +47,22 @@ def _numpy(outs):
     return tuple(x.cpu().numpy() for x in outs)
 
 
+def _gate_backward_inputs(device):
+    g = np.load(scenes.GATE_NPZ)
+    t = lambda k: torch.tensor(g[k], device=device)  # noqa: E731
+    return g, dict(color_pre_bg=t("color"), final_t=t("final_t"),
+                   dl_dpix=t("dl_dpix"),
+                   bg=torch.zeros(3, dtype=torch.float32, device=device),
+                   depth_acc=t("depth"), dl_ddepth=t("ct_d"))
+
+
 @pytest.mark.parametrize("case", ["gate", "span_edges"])
 def test_kernel_matches_plain_cuda(case):
     settings, prep, pairs = _case(case, _cuda())
-    before = cuda_rasterize.LAUNCHES
+    before = cuda_rasterize.LAUNCHES["rasterize_fwd"]
     got = cuda_rasterize.composite_forward(prep, pairs, settings)
     torch.cuda.synchronize()
-    assert cuda_rasterize.LAUNCHES == before + 1
+    assert cuda_rasterize.LAUNCHES["rasterize_fwd"] == before + 1
     assert got[3].dtype == torch.int32
     compare(case, _numpy(got),
             _numpy(rasterize.composite_forward(prep, pairs, settings)))
@@ -55,7 +70,7 @@ def test_kernel_matches_plain_cuda(case):
 
 def test_kernel_wrapper_rejects_bad_pairs_cuda():
     settings, prep, pairs = _case("span_edges", _cuda())
-    before = cuda_rasterize.LAUNCHES
+    before = dict(cuda_rasterize.LAUNCHES)
     with pytest.raises(TypeError, match="tile_start"):
         cuda_rasterize.composite_forward(
             prep, pairs._replace(tile_start=pairs.tile_start.long()), settings)
@@ -63,3 +78,77 @@ def test_kernel_wrapper_rejects_bad_pairs_cuda():
         cuda_rasterize.composite_forward(
             prep, pairs._replace(tile_count=pairs.tile_count[:-1]), settings)
     assert cuda_rasterize.LAUNCHES == before
+
+
+def test_backward_kernel_matches_gate_and_plain_cuda():
+    settings, prep, pairs = _case("gate", _cuda())
+    g, inputs = _gate_backward_inputs(prep.xy.device)
+    before = cuda_rasterize.LAUNCHES["rasterize_bwd"]
+    got = cuda_rasterize.composite_backward(prep, pairs, settings, **inputs)
+    torch.cuda.synchronize()
+    assert cuda_rasterize.LAUNCHES["rasterize_bwd"] == before + 1
+    check_grads("gate", got, tuple(g[f"g_{k}"] for k in GRAD_NAMES),
+                flip_tolerant=False)
+    check_grads("gate vs plain", got, rasterize.composite_backward(
+        prep, pairs, settings, **inputs), flip_tolerant=True)
+
+
+def test_backward_kernel_rows_are_deterministic_and_zero_past_the_tiles_cuda():
+    settings, prep, pairs = _case("gate", _cuda())
+    _, inputs = _gate_backward_inputs(prep.xy.device)
+    a = cuda_rasterize.backward_rows(prep, pairs, settings, **inputs)
+    b = cuda_rasterize.backward_rows(prep, pairs, settings, **inputs)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    in_tiles = int(pairs.tile_count.sum())
+    assert not a[in_tiles:].any()                   # slots of no tile, last row
+    assert a[:in_tiles].abs().sum() > 0
+
+
+def test_backward_kernel_wrapper_rejects_bad_inputs_cuda():
+    settings, prep, pairs = _case("gate", _cuda())
+    _, inputs = _gate_backward_inputs(prep.xy.device)
+    before = dict(cuda_rasterize.LAUNCHES)
+    with pytest.raises(ValueError, match="dl_dpix"):
+        cuda_rasterize.backward_rows(prep, pairs, settings, **{
+            **inputs, "dl_dpix": inputs["dl_dpix"][:-1]})
+    with pytest.raises(TypeError, match="final_t"):
+        cuda_rasterize.backward_rows(prep, pairs, settings, **{
+            **inputs, "final_t": inputs["final_t"].double()})
+    assert cuda_rasterize.LAUNCHES == before
+
+
+def test_backward_kernel_on_a_row_band_matches_plain_cuda():
+    """Tile rows 1 and 3 of a 64x64 scene (row0 1, row stride 2)."""
+    device = _cuda()
+    rng = np.random.default_rng(2)
+    cam = scenes.example_camera(width=64, height=64)
+    params = scenes.random_scene(rng, n=80)
+    settings = RenderSettings(width=64, height=64, pair_capacity=1 << 13,
+                              tile_rows=2, row_stride=2)
+    pts, shs, scales, rotations, opacities = (
+        torch.tensor(x, device=device) for x in params)
+    prep = preprocess(pts, scales, rotations, opacities, shs,
+                      *(torch.tensor(cam[k], device=device)
+                        for k in ("view", "proj", "campos")), 64, 64,
+                      cam["tan_fovx"], cam["tan_fovy"], settings.grid_x,
+                      settings.grid_y, 3)
+    rect, tiles = rasterize.clip_rect_to_band(prep.rect, prep.tiles_touched,
+                                              1, settings.band_rows, 2)
+    pairs = build_pairs(tiles, rect, prep.depth, settings.grid_x,
+                        settings.band_tiles, settings.pair_capacity, row0=1,
+                        row_stride=2)
+    color, dacc, final_t, _ = cuda_rasterize.composite_forward(
+        prep, pairs, settings, row0=1)
+    t = settings.band_tiles
+    inputs = dict(color_pre_bg=color, final_t=final_t, depth_acc=dacc,
+                  dl_dpix=torch.tensor(rng.normal(size=(t, 256, 3)),
+                                       dtype=torch.float32, device=device),
+                  dl_ddepth=torch.tensor(rng.normal(size=(t, 256)),
+                                         dtype=torch.float32, device=device),
+                  bg=torch.tensor([0.2, 0.1, 0.4], device=device))
+    got = cuda_rasterize.composite_backward(prep, pairs, settings, row0=1,
+                                            **inputs)
+    want = rasterize.composite_backward(prep, pairs, settings, row0=1,
+                                        **inputs)
+    assert float(want[3].abs().max()) > 0
+    check_grads("row band", got, want, flip_tolerant=True)

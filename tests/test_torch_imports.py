@@ -27,7 +27,9 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_no_jax_flax_or_gstpu():
     mods = ["gstpu_torch"] + _modules()
-    assert "gstpu_torch.ops.cuda_rasterize" in mods
+    for name in ("ops.cuda_rasterize", "ops.preprocess_bwd", "ops.losses",
+                 "optim", "scheduler", "models.gaussians", "trainer"):
+        assert f"gstpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -43,6 +45,7 @@ def test_port_imports_no_jax_flax_or_gstpu():
 def test_sources_name_no_jax_flax_or_gstpu_import():
     files = sorted((ROOT / "gstpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_render.py",
+        ROOT / "scripts" / "torch_profile_train.py",
         ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
     for path in files:

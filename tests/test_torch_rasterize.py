@@ -108,7 +108,7 @@ def test_kernel_wrapper_runs_plain_version_on_cpu():
     settings, prep_np, pairs_np = torch_scenes.span_edge_case()
     prep = convert.prep_from_numpy(prep_np, "cpu", prefix="")
     pairs = convert.pairs_from_numpy(pairs_np, "cpu", prefix="")
-    before = cuda_rasterize.LAUNCHES
+    before = dict(cuda_rasterize.LAUNCHES)
     got = cuda_rasterize.composite_forward(prep, pairs, settings)
     want = TR.composite_forward(prep, pairs, settings)
     assert cuda_rasterize.LAUNCHES == before
