@@ -211,25 +211,17 @@ def backward_rows(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
     """
     dev = _check_inputs(prep, pairs, settings)
     t = settings.band_tiles
-    _check("final_t", final_t, torch.float32, dev, (t, TILE_PIXELS))
-    for name, x in (("color_pre_bg", color_pre_bg), ("dl_dpix", dl_dpix)):
-        if x.device != dev or x.dtype != torch.float32 \
-                or tuple(x.shape) != (t, TILE_PIXELS, 3):
-            raise ValueError(f"{name}: expected float32 {(t, TILE_PIXELS, 3)}"
-                             f" on {dev}, got {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device}")
-    if bg.device != dev or tuple(bg.shape) != (3,):
-        raise ValueError(f"bg: expected (3,) on {dev}, got "
-                         f"{tuple(bg.shape)} on {bg.device}")
     if dl_ddepth is None:
         dl_ddepth = torch.zeros_like(final_t)
         depth_acc = torch.zeros_like(final_t)
-    for name, x in (("depth_acc", depth_acc), ("dl_ddepth", dl_ddepth)):
-        if x.device != dev or x.dtype != torch.float32 \
-                or tuple(x.shape) != (t, TILE_PIXELS):
-            raise ValueError(f"{name}: expected float32 {(t, TILE_PIXELS)} "
-                             f"on {dev}, got {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device}")
+    for name, x, shape in (
+            ("color_pre_bg", color_pre_bg, (t, TILE_PIXELS, 3)),
+            ("dl_dpix", dl_dpix, (t, TILE_PIXELS, 3)),
+            ("final_t", final_t, (t, TILE_PIXELS)),
+            ("depth_acc", depth_acc, (t, TILE_PIXELS)),
+            ("dl_ddepth", dl_ddepth, (t, TILE_PIXELS)),
+            ("bg", bg, (3,))):
+        _check(name, x, torch.float32, dev, shape)
 
     ctot_dot = torch.sum(color_pre_bg * dl_dpix, dim=-1) + depth_acc * dl_ddepth
     bg_dot = torch.sum(bg[None, None, :] * dl_dpix, dim=-1)

@@ -130,7 +130,11 @@ def _chunk_alpha(prep: PreprocessOut, gid, pvalid, pixf_x, pixf_y):
     cb = con[:, None, :, 1]
     cc = con[:, None, :, 2]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    g = torch.exp(torch.clamp(power, max=0.0))
+    # exp in float64, rounded to float32: the float32 exp of PyTorch's CPU
+    # kernels can differ in the last bit from one process to the next, and
+    # the backward's 1 / (1 - alpha) terms carry such a bit past 1e-5 of
+    # the gradients' scale
+    g = torch.exp(torch.clamp(power, max=0.0).double()).float()
     op = op[:, None, :]
     alpha = torch.clamp(op * g, max=ALPHA_MAX)
     indiv = pvalid[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
@@ -375,12 +379,9 @@ def image_to_tiles(img: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
     return out.transpose(1, 2).reshape((gy * gx, TILE_PIXELS) + trailing)
 
 
-def _compositing(plain: bool):
+def _kernel_compositing():
     """(composite_forward, composite_backward) of a render: the kernel
-    wrappers (which run the plain versions for CPU tensors), or the plain
-    versions on any device when the caller asks for them."""
-    if plain:
-        return composite_forward, composite_backward
+    wrappers, which run the plain versions for CPU tensors."""
     # cuda_rasterize imports this module for the plain versions
     from gstpu_torch.ops import cuda_rasterize
     return cuda_rasterize.composite_forward, cuda_rasterize.composite_backward
@@ -388,7 +389,8 @@ def _compositing(plain: bool):
 
 def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                 scale_modifier: float, means, scales, rotations, opacities,
-                shs, view, proj, campos, bg, alive, row0: int, plain: bool):
+                shs, view, proj, campos, bg, alive, row0: int,
+                composite_fwd):
     """Forward render; returns ((image, depth, RenderAux), (prep, pairs,
     color, dacc)), the second tuple being what the backward needs."""
     if settings.shard_axis is not None:
@@ -411,8 +413,8 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                         cull_tcut=cull_tcut, row0=row0,
                         row_stride=settings.row_stride,
                         kept_capacity=settings.kept_capacity)
-    color, dacc, final_t, n_contrib = _compositing(plain)[0](
-        prep, pairs, settings, row0=row0)
+    color, dacc, final_t, n_contrib = composite_fwd(prep, pairs, settings,
+                                                    row0=row0)
 
     image_tiles = color + final_t[:, :, None] * bg[None, None, :]
     image = tiles_to_image(image_tiles, settings)
@@ -434,7 +436,7 @@ def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     """
     return _render_fwd(settings, tan_fovx, tan_fovy, scale_modifier, means,
                        scales, rotations, opacities, shs, view, proj, campos,
-                       bg, alive, row0, plain=False)[0]
+                       bg, alive, row0, _kernel_compositing()[0])[0]
 
 
 _N_PREP = len(PreprocessOut._fields)
@@ -447,14 +449,14 @@ class _Render(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, settings, tan_fovx, tan_fovy, scale_modifier, row0,
-                plain, means, scales, rotations, opacities, shs, view, proj,
-                campos, bg, alive):
+                compositing, means, scales, rotations, opacities, shs, view,
+                proj, campos, bg, alive):
         (image, depth, aux), (prep, pairs, color, dacc) = _render_fwd(
             settings, tan_fovx, tan_fovy, scale_modifier, means, scales,
             rotations, opacities, shs, view, proj, campos, bg, alive, row0,
-            plain)
+            compositing[0])
         ctx.static = (settings, tan_fovx, tan_fovy, scale_modifier, row0,
-                      plain)
+                      compositing[1])
         ctx.save_for_backward(*prep, *pairs, color, dacc, aux.final_t, means,
                               scales, rotations, shs, view, proj, campos, bg)
         ctx.mark_non_differentiable(*aux)
@@ -462,7 +464,8 @@ class _Render(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_image, ct_depth, *_aux_cotangents):
-        settings, tan_fovx, tan_fovy, scale_modifier, row0, plain = ctx.static
+        (settings, tan_fovx, tan_fovy, scale_modifier, row0,
+         composite_bwd) = ctx.static
         saved = ctx.saved_tensors
         prep = PreprocessOut(*saved[:_N_PREP])
         pairs = Pairs(*saved[_N_PREP:_N_PREP + _N_PAIRS])
@@ -473,8 +476,7 @@ class _Render(torch.autograd.Function):
         # the inverse-depth image is a fourth composited channel with no
         # background term (the reference has no depth backward)
         dl_ddepth = image_to_tiles(ct_depth, settings)
-        (d_color, d_mean2d, d_conic, d_opac,
-         d_invd) = _compositing(plain)[1](
+        d_color, d_mean2d, d_conic, d_opac, d_invd = composite_bwd(
             prep, pairs, settings, color, final_t, dl_dpix, bg, row0=row0,
             depth_acc=dacc, dl_ddepth=dl_ddepth)
 
@@ -501,8 +503,8 @@ class _Render(torch.autograd.Function):
             means.dtype)
         dmean_depth = d_tz[:, None] * view[None, :3, 2]
         dmean = dmean_cov + dmean_proj + dmean_sh + dmean_depth
-        # settings, tan_fovx, tan_fovy, scale_modifier, row0, plain; the
-        # camera, background and alive mask are inputs, not parameters
+        # settings, tan_fovx, tan_fovy, scale_modifier, row0, compositing;
+        # the camera, background and alive mask are inputs, not parameters
         return ((None,) * 6 + (dmean, dscale, drot, d_opac, dsh)
                 + (None,) * 5)
 
@@ -510,7 +512,7 @@ class _Render(torch.autograd.Function):
 def render(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
            scale_modifier: float, means, scales, rotations, opacities, shs,
            view, proj, campos, bg, alive=None, row0: int = 0,
-           plain: bool = False):
+           _compositing=None):
     """Differentiable render: returns (image (H,W,3), depth (H,W), aux).
 
     Gradients flow to ``means``, ``scales``, ``rotations``, ``opacities``
@@ -518,11 +520,13 @@ def render(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     CUDA kernel K2 and its epilogue for CUDA tensors, the plain version for
     CPU tensors), then the preprocess adjoint chain with the reference's
     quirks under ``settings.parity``.  ``alive`` is an (N,) bool mask of
-    capacity padding.  ``plain=True`` runs the plain PyTorch compositing on
-    any device, to check the kernels against it.
+    capacity padding.  ``_compositing``, a (composite_forward,
+    composite_backward) pair in place of the kernel wrappers, is for checks
+    that hold the kernels against their plain versions on the card.
     """
     out = _Render.apply(settings, float(tan_fovx), float(tan_fovy),
-                        float(scale_modifier), int(row0), bool(plain), means,
-                        scales, rotations, opacities, shs, view, proj, campos,
-                        bg, alive)
+                        float(scale_modifier), int(row0),
+                        _compositing or _kernel_compositing(), means, scales,
+                        rotations, opacities, shs, view, proj, campos, bg,
+                        alive)
     return out[0], out[1], RenderAux(*out[2:])

@@ -47,13 +47,13 @@ def loss_and_grads(settings: RenderSettings, config: GSConfig,
                    tan_fovy: float, target: torch.Tensor,
                    target_depth: torch.Tensor | None = None,
                    depth_mask: torch.Tensor | None = None,
-                   plain: bool = False):
+                   _compositing=None):
     """The loss of one view and its gradient with respect to every stored
     parameter group: ``(loss, {group: gradient}, RenderAux)``.
 
     The loss is ``combined_loss`` plus ``lambda_depth * depth_loss`` when a
-    depth target is given.  ``plain=True`` runs the plain PyTorch
-    compositing even on the card, to check the kernels against it.
+    depth target is given.  ``_compositing`` is passed on to ``render``
+    (for checks of the kernels against their plain versions).
     """
     bg = torch.tensor(config.background_color, dtype=torch.float32,
                       device=target.device)
@@ -63,7 +63,7 @@ def loss_and_grads(settings: RenderSettings, config: GSConfig,
     image, depth, aux = render(
         settings, tan_fovx, tan_fovy, config.scale_modifier, p["positions"],
         p["scales"], p["rotations"], p["opacities"], p["shs"], view, proj,
-        campos, bg, model.alive, 0, plain=plain)
+        campos, bg, model.alive, 0, _compositing=_compositing)
     loss = combined_loss(image, target, config.lambda_dssim)
     if target_depth is not None:
         loss = loss + config.lambda_depth * depth_loss(
@@ -77,7 +77,7 @@ def train_step(settings: RenderSettings, config: GSConfig,
                proj: torch.Tensor, campos: torch.Tensor, tan_fovx: float,
                tan_fovy: float, target: torch.Tensor, iteration: int,
                target_depth: torch.Tensor | None = None,
-               depth_mask: torch.Tensor | None = None, plain: bool = False):
+               depth_mask: torch.Tensor | None = None):
     """One step: render, loss, backward, Adam (``loss_and_grads``, then
     ``adam_step`` with the scheduled learning rates).
 
@@ -97,8 +97,7 @@ def train_step(settings: RenderSettings, config: GSConfig,
     torch.backends.cuda.matmul.allow_tf32 = False
     loss, grads, aux = loss_and_grads(
         settings, config, model, view, proj, campos, tan_fovx, tan_fovy,
-        target, target_depth=target_depth, depth_mask=depth_mask,
-        plain=plain)
+        target, target_depth=target_depth, depth_mask=depth_mask)
     new_params, new_adam = adam_step(
         model.param_dict(), grads, adam, schedule_lrs(config, iteration),
         iteration, config, alive=model.alive)
