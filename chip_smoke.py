@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and build: versions, the card's name and power limit, and the
    nvcc builds of every kernel (K1, csrc/rasterize_fwd.cu; K2,
-   csrc/rasterize_bwd.cu), started together;
+   csrc/rasterize_bwd.cu; K3, csrc/sol_compositing.cu), started together;
 2. K1 against its plain PyTorch version on the card and against the stored
-   JAX outputs, on (a) the stored gate (tests/golden/pallas_gate.npz),
+   JAX outputs, on (a) the stored gate (tests/golden/pallas_gate.npz,
+   through gstpu_torch/ops/kernel_check.py),
    (b) the span edge cases, (c) one full-size 800x800 Lego view, close
    enough that every tile is occupied;
 3. the render path: ``render_gaussians`` on the trained Lego point cloud
@@ -19,8 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    are zeroed just before and read just after, and every image is held
    against the plain version's image of the same view;
 4. render times with CUDA events (medians after a warm-up) and K1's bound;
-5. K2 (with its epilogue) against the stored JAX gradients of the gate, and
-   against its plain version on the card on the gate, the high-opacity
+5. K2 (with its epilogue, on K1's outputs, as the kernel gate runs it)
+   against the stored JAX gradients of the gate, and against its plain
+   version on the card on the gate, the high-opacity
    early-exit scene (tile starts off the multiples of 128, saturated
    pixels) and the close 800x800 view; two runs of K2 give bit-identical
    rows on the gate and on the close view;
@@ -33,7 +35,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    orbit view falls;
 7. one step with K1 + K2 against the same step with the plain versions on
    the card, in the raw/L1 and the activated/SSIM configurations;
-8. training times with CUDA events and K2's bound.
+8. training times with CUDA events and K2's bound;
+9. K3 (the speed-of-light model's compositing kernel), forward and backward,
+   against its plain version on the card at 2,500 tiles and 1, 2 and 5
+   chunks: every tile row bit-identical, two runs bit-identical, one launch
+   per call;
+10. the second main path, measurement: the speed-of-light model
+   (``gstpu_torch.sol_model.run``) on the card, with K3's launch counts
+   zeroed just before and read just after; every stage, the copy bandwidth,
+   ``sol_ms``, K3's CUDA-event times beside its bound and its plain
+   version's;
+11. the port's bench (``gstpu_torch.bench.main``): the kernel gate with
+   ``preprocess_backend_parity``, the headline (100k Gaussians, 800x800,
+   fitted capacities) with exactly one K1 and one K2 launch per timed
+   iteration (counts zeroed before, read after), the trained-scene
+   companion, ``vs_sol`` from phase 10's model; one headline iteration
+   against the same with the plain compositing; then the bench suite
+   (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of gstpu.
@@ -50,10 +68,10 @@ import sys
 import numpy as np
 import torch
 
-from gstpu_torch import convert, scenes
+from gstpu_torch import bench, bench_suite, convert, scenes, sol_model
 from gstpu_torch.config import GSConfig, RenderSettings
 from gstpu_torch.models.gaussians import GaussianModel, grow_capacity
-from gstpu_torch.ops import cuda_rasterize, rasterize
+from gstpu_torch.ops import cuda_build, cuda_rasterize, kernel_check, rasterize
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss, l1_pixel_gradients
 from gstpu_torch.ops.preprocess import preprocess
@@ -73,22 +91,21 @@ RECORD_BYTES = 40         # one packed Gaussian record (10 f32)
 OUT_BYTES_PER_PIXEL = 24  # color 12, inverse depth 4, final T 4, n_contrib 4
 PIX_IN_BYTES = 28         # K2's per-pixel inputs (7 f32)
 ROW_BYTES = 40            # K2's per-pair output row (10 f32)
-# thresholds of the compiled gate (gstpu/ops/pallas_check.py:160-188)
-MAX_FLIP_FRAC = 0.05
-MAX_COLOR_ERR = 1e-5
-MAX_DEPTH_ERR = 1e-4
-BOUNDARY_T = 6e-4
+# thresholds of the kernel gate (gstpu/ops/pallas_check.py:160-188)
+MAX_FLIP_FRAC = kernel_check.MAX_FLIP_FRAC
+MAX_COLOR_ERR = kernel_check.MAX_COLOR_ERR
+MAX_DEPTH_ERR = kernel_check.MAX_DEPTH_ERR
 # Gradients: error relative to each output's largest magnitude (the
 # compiled gate's 1e-3, gstpu/ops/pallas_check.py:174-182).  Flip-tolerant
 # where keep-threshold pairs may flip between the kernel's sequential
 # transmittance and the plain version's cumulative product: at most
 # GRAD_OUTLIER_FRAC of the elements may exceed GRAD_REL_TOL, none
 # GRAD_OUTLIER_CAP.
-GRAD_REL_TOL = 1e-3
+GRAD_REL_TOL = kernel_check.MAX_GRAD_REL
 GRAD_OUTLIER_FRAC = 1e-3
 GRAD_OUTLIER_CAP = 2e-2
 LOSS_REL_TOL = 1e-5
-GRAD_NAMES = ("d_color", "d_mean2d", "d_conic", "d_opac", "d_invdepth")
+GRAD_NAMES = kernel_check.GRAD_NAMES
 # the plain versions in place of the kernel wrappers, for rasterize.render
 PLAIN_COMPOSITING = (rasterize.composite_forward, rasterize.composite_backward)
 # Training main path: 8 orbit views (theta = 2 pi k / 8), a held-out view
@@ -106,6 +123,11 @@ PERTURB_SEED = 0
 PERTURB_POS = 0.05
 PERTURB_SH_DC = 0.5
 PERTURB_OPACITY = (0.5, 1.0)
+# K3 on the card against its plain version: forward absolute, backward over
+# each output row's largest magnitude
+K3_CHUNKS = (1, 2, 5)
+K3_FWD_TOL = 1e-5
+K3_BWD_REL_TOL = 1e-5
 
 
 def log(**kw) -> None:
@@ -120,23 +142,13 @@ def compare(name: str, got, want) -> dict:
     """Hold compositing outputs (color, depth, final_t, n_contrib) against a
     reference with the gate's flip-tolerant thresholds; raise on failure.
 
-    A boundary pixel (exempt from the value checks) is a contributor-count
-    flip or a pixel whose final transmittance is below 6e-4: summation
-    order legitimately flips pairs sitting on the 1/255 or 1e-4 thresholds.
+    The errors are ``kernel_check.forward_errors``: a boundary pixel
+    (exempt from the value checks) is a contributor-count flip or a pixel
+    whose final transmittance is below 6e-4, since summation order
+    legitimately flips pairs sitting on the 1/255 or 1e-4 thresholds.
+    Outputs are tuples in that order or dicts by name.
     """
-    gc, gd, gt, gn = got
-    wc, wd, wt, wn = want
-    flips = gn != wn
-    boundary = flips | (gt < BOUNDARY_T) | (wt < BOUNDARY_T)
-    res = {
-        "check": name,
-        "flip_frac": float(flips.mean()),
-        "color_err": float(np.where(boundary[..., None], 0.0,
-                                    np.abs(gc - wc)).max()),
-        "depth_err": float(np.where(boundary, 0.0, np.abs(gd - wd)).max()),
-        "final_t_err": float(np.where(boundary, 0.0, np.abs(gt - wt)).max()),
-        "color_err_all_pixels": float(np.abs(gc - wc).max()),
-    }
+    res = {"check": name, **kernel_check.forward_errors(got, want)}
     res["ok"] = bool(res["flip_frac"] < MAX_FLIP_FRAC
                      and res["color_err"] < MAX_COLOR_ERR
                      and res["depth_err"] < MAX_DEPTH_ERR
@@ -190,21 +202,15 @@ def plain_outputs(params, cam, settings, bg):
     return color + final_t[:, :, None] * bg, dacc, final_t, n_contrib
 
 
-def fitted_cull_settings(params, cam, size: int) -> RenderSettings:
-    """tight_radius + pair_cull with capacities fitted as bench.py fits them
-    (live pairs x 1.05, rounded up to 8192); preprocess and binning only."""
-    n = params["positions"].shape[0]
-    probe = RenderSettings(width=size, height=size, tight_radius=True,
-                           pair_capacity=default_pair_capacity(n))
-    prep, _ = prep_and_pairs(params, cam, probe)
-    live = int(prep.tiles_touched.sum())
-    pair_capacity = -(-int(live * 1.05) // 8192) * 8192
-    probe = RenderSettings(width=size, height=size, tight_radius=True,
-                           pair_cull=True, pair_capacity=pair_capacity)
-    _, pairs = prep_and_pairs(params, cam, probe)
-    kept_capacity = -(-int(int(pairs.num_kept) * 1.05) // 8192) * 8192
-    return RenderSettings(width=size, height=size, tight_radius=True,
-                          pair_cull=True, pair_capacity=pair_capacity,
+def fitted_cull_settings(params, cam) -> RenderSettings:
+    """tight_radius + pair_cull with capacities fitted as the bench fits
+    them (``gstpu_torch.bench.fit_capacities``)."""
+    view = bench.camera_view(cam, params["positions"].device)
+    pair_capacity, kept_capacity, _, _ = bench.fit_capacities(
+        [params[k] for k in convert.PARAM_KEYS], view)
+    return RenderSettings(width=view.width, height=view.height,
+                          tight_radius=True, pair_cull=True,
+                          pair_capacity=pair_capacity,
                           kept_capacity=kept_capacity)
 
 
@@ -286,7 +292,7 @@ def phase_build() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    for name, (path, build_log, seconds) in cuda_rasterize.build().items():
+    for name, (path, build_log, seconds) in cuda_build.build().items():
         log(kernel=name, library=str(path), build_s=seconds)
         if build_log.strip():
             print(build_log.strip(), flush=True)
@@ -296,14 +302,10 @@ def phase_kernel_checks(params, size: int, device) -> float:
     """K1 against the plain version (and the stored JAX outputs on the
     gate); returns the max color error off boundary at the Lego view."""
     log(phase=2)
-    g = np.load(scenes.GATE_NPZ)
-    gate = RenderSettings(width=160, height=160, pair_capacity=1 << 16)
-    prep = convert.prep_from_numpy(g, device)
-    pairs = convert.pairs_from_numpy(g, device)
-    got = to_np(cuda_rasterize.composite_forward(prep, pairs, gate))
-    compare("gate: kernel vs stored JAX outputs", got,
-            (g["color"], g["depth"], g["final_t"], g["n_contrib"]))
-    kernel_vs_plain("gate", prep, pairs, gate)
+    gate = kernel_check.load_gate(device)
+    compare("gate: kernel vs stored JAX outputs",
+            kernel_check.gate_forward(gate), gate.stored)
+    kernel_vs_plain("gate", gate.prep, gate.pairs, gate.settings)
 
     settings, prep_np, pairs_np = scenes.span_edge_case()
     kernel_vs_plain("span edge cases",
@@ -331,7 +333,7 @@ def phase_main_path(params, size: int, device, bg) -> int:
     cams = [scenes.lego_orbit(t, size) for t in THETAS]
     default = RenderSettings(width=size, height=size,
                              pair_capacity=default_pair_capacity(n))
-    cull = fitted_cull_settings(params, cams[0], size)
+    cull = fitted_cull_settings(params, cams[0])
     views = [(f"orbit theta={t:.4f}", cam, default,
               lambda cam=cam: render_view(params, cam, size, bg, device))
              for t, cam in zip(THETAS, cams)]
@@ -416,34 +418,11 @@ def phase_timing(params, size: int, device, bg) -> dict:
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
-def grad_errors(got, want) -> dict:
-    """Per output: the largest error and the share of elements over
-    GRAD_REL_TOL, both relative to the output's largest magnitude.  Outputs
-    are dicts by name, or tuples in the order of GRAD_NAMES."""
-    def named(x):
-        return dict(zip(GRAD_NAMES, x)) if isinstance(x, tuple) else x
-
-    def f64(x):
-        return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
-                          np.float64)
-
-    got, want = named(got), named(want)
-    res = {}
-    for name in want:
-        a, b = f64(got[name]), f64(want[name])
-        scale = max(float(np.abs(b).max()), 1e-12)
-        err = np.abs(a - b) / scale
-        res[name] = {"rel_max": float(err.max()),
-                     "over_tol_frac": float((err > GRAD_REL_TOL).mean()),
-                     "abs_max": float(np.abs(a - b).max())}
-    return res
-
-
 def check_grads(name: str, got, want, flip_tolerant: bool) -> dict:
     """Hold gradients against a reference; raise outside the tolerance.
     Returns the largest absolute error and the largest error relative to
     each output's largest magnitude, over the outputs."""
-    errs = grad_errors(got, want)
+    errs = kernel_check.grad_errors(got, want, GRAD_REL_TOL)
     if flip_tolerant:
         ok = all(e["over_tol_frac"] <= GRAD_OUTLIER_FRAC
                  and e["rel_max"] <= GRAD_OUTLIER_CAP for e in errs.values())
@@ -495,24 +474,21 @@ def phase_k2_checks(params, size: int, device) -> dict:
     returns the largest absolute and relative errors against the plain
     version at the close 800x800 view."""
     log(phase=5)
-    g = np.load(scenes.GATE_NPZ)
-    gate = RenderSettings(width=160, height=160, pair_capacity=1 << 16)
-    prep = convert.prep_from_numpy(g, device)
-    pairs = convert.pairs_from_numpy(g, device)
-    f32 = lambda k: torch.tensor(g[k], device=device)  # noqa: E731
-    inputs = dict(color_pre_bg=f32("color"), final_t=f32("final_t"),
-                  dl_dpix=f32("dl_dpix"),
-                  bg=torch.zeros(3, dtype=torch.float32, device=device),
-                  depth_acc=f32("depth"), dl_ddepth=f32("ct_d"))
-    want = tuple(g[f"g_{k}"] for k in GRAD_NAMES)
+    gate = kernel_check.load_gate(device)
+    fwd = kernel_check.gate_forward(gate)
+    want = {k: gate.stored[f"g_{k}"] for k in GRAD_NAMES}
     check_grads("gate: K2 + epilogue vs stored JAX gradients",
-                cuda_rasterize.composite_backward(prep, pairs, gate, **inputs),
-                want, flip_tolerant=False)
+                kernel_check.gate_backward(gate, fwd), want,
+                flip_tolerant=False)
     check_grads("gate: plain version on the card vs stored JAX gradients",
-                rasterize.composite_backward(prep, pairs, gate, **inputs),
+                kernel_check.gate_backward(gate, fwd,
+                                           rasterize.composite_backward),
                 want, flip_tolerant=False)
-    k2_vs_plain("gate", prep, pairs, gate, inputs)
-    k2_deterministic("gate", prep, pairs, gate, inputs)
+    inputs = dict(color_pre_bg=fwd["color"], final_t=fwd["final_t"],
+                  dl_dpix=gate.dl_dpix, bg=gate.bg, depth_acc=fwd["depth"],
+                  dl_ddepth=gate.ct_d)
+    k2_vs_plain("gate", gate.prep, gate.pairs, gate.settings, inputs)
+    k2_deterministic("gate", gate.prep, gate.pairs, gate.settings, inputs)
 
     settings, p_np, cam, dl_dpix, dl_ddepth, bg = scenes.early_exit_scene()
     p = convert.params_from_numpy(p_np, device)
@@ -781,6 +757,163 @@ def phase_train_timing(run: TrainRun) -> dict:
             "the plain walk, then the per-Gaussian sums)"}
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def phase_k3_checks(device) -> dict:
+    """K3 against its plain version on the card at the model's 2,500 tiles;
+    returns {form: (largest absolute error, largest error over its row's
+    largest magnitude)} over the chunk counts."""
+    log(phase=9)
+    feat = sol_model.feature_block(device)
+    tiles = sol_model.TILES
+    errs = {}
+    for backward in (False, True):
+        form = "sol_compositing_bwd" if backward else "sol_compositing_fwd"
+        worst = (0.0, 0.0)
+        for n_chunks in K3_CHUNKS:
+            before = dict(sol_model.LAUNCHES)
+            got = sol_model.sol_compositing(feat, n_chunks, tiles, backward)
+            again = sol_model.sol_compositing(feat, n_chunks, tiles, backward)
+            torch.cuda.synchronize()
+            launched = {k: sol_model.LAUNCHES[k] - before[k] for k in before}
+            want = sol_model.sol_compositing_plain(feat, n_chunks, tiles,
+                                                   backward)
+            diff = (got.double() - want.double()).abs()
+            row_scale = want.double().abs().amax(dim=(0, 2)).clamp(min=1e-12)
+            row_rel = diff.amax(dim=(0, 2)) / row_scale
+            res = {"check": f"K3 {'backward' if backward else 'forward'} vs "
+                   f"plain on the card", "tiles": tiles, "n_chunks": n_chunks,
+                   "shape": list(got.shape), "max_abs_err": float(diff.max()),
+                   "row_rel_err": row_rel.tolist(),
+                   "row_max": row_scale.tolist(),
+                   "tiles_bit_identical": bool(
+                       (_bits(got) == _bits(got[:1])).all()),
+                   "runs_bit_identical": bool(torch.equal(_bits(got),
+                                                          _bits(again))),
+                   "launches": launched}
+            res["ok"] = bool(
+                res["tiles_bit_identical"] and res["runs_bit_identical"]
+                and launched == {k: 2 * (k == form) for k in launched}
+                and bool(torch.isfinite(got).all())
+                and (float(row_rel.max()) < K3_BWD_REL_TOL if backward
+                     else res["max_abs_err"] < K3_FWD_TOL))
+            log(**res)
+            if not res["ok"]:
+                raise RuntimeError(f"K3 check failed: {res}")
+            worst = (max(worst[0], res["max_abs_err"]),
+                     max(worst[1], float(row_rel.max())))
+        errs[form] = worst
+    return errs
+
+
+def phase_sol(device) -> tuple[dict, dict]:
+    """The speed-of-light model on the card, K3's launches counted; K3's
+    CUDA-event times beside its bound and its plain version's.  Returns the
+    model's dict and {form: record fields}."""
+    log(phase=10)
+    launches = sol_model.LAUNCHES
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    sol = sol_model.run(device)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    log(path="sol model", launches=counts, **sol)
+    if counts != {k: sol_model.TIMED_CALLS for k in counts}:
+        raise RuntimeError(f"sol model launched K3 {counts}, not "
+                           f"{sol_model.TIMED_CALLS} each")
+    if not all(math.isfinite(v) and v > 0 for v in sol["stages"].values()):
+        raise RuntimeError(f"sol model stages {sol['stages']}")
+    _, b, _, _ = sol_model.sort_inputs(device)
+    log(stage="binning_scans, split", cumsum_ms=time_ms(
+        lambda: torch.cumsum(b, dim=0, dtype=b.dtype), 20),
+        cummax_ms=time_ms(lambda: torch.cummax(b, dim=0), 20))
+    feat = sol_model.feature_block(device)
+    out = {}
+    for backward in (False, True):
+        form = "sol_compositing_bwd" if backward else "sol_compositing_fwd"
+        args = (feat, sol_model.N_CHUNKS, sol_model.TILES, backward)
+        ms = time_ms(lambda: sol_model.sol_compositing(*args), 50)
+        plain_ms = time_ms(lambda: sol_model.sol_compositing_plain(*args), 5,
+                           warmup=1)
+        bound = sol_model.k3_bound(sol_model.TILES, sol_model.N_CHUNKS,
+                                   backward, PEAK_FP32_FLOPS,
+                                   PEAK_BYTES_PER_S)
+        stage = "bwd" if backward else "fwd"
+        log(kernel=form, ms=ms,
+            sol_stage_ms=sol["stages"][f"{stage}_compositing_ms"],
+            plain_ms=plain_ms, bound_share=bound["bound_ms"] / ms,
+            card=sol["device"], library_ms=None,
+            library_note="no single PyTorch call computes this", **bound)
+        out[form] = {"launches": counts[form], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"]}
+    return sol, out
+
+
+def phase_bench(device, sol: dict) -> None:
+    """The port's bench through its entry point, launches counted; the
+    headline iteration against the same with the plain compositing; the
+    bench suite."""
+    log(phase=11)
+    launches = cuda_rasterize.LAUNCHES
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    record = bench.main([], sol=sol)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    extra = record["extra"]
+    gate = extra.get("kernel_parity", {})
+    # the gate runs K1 and K2 once; the headline and the trained scene each
+    # run bench.RUNS timed fwd+bwd iterations
+    want = {k: 1 + 2 * bench.RUNS for k in counts}
+    log(path="bench", launches=counts, expected=want,
+        per_iteration=extra["launches_per_iteration"], gate=gate)
+    problems = []
+    if not (extra.get("kernel_parity_ok") and gate.get("prep_ok")):
+        problems.append("the kernel gate failed")
+    if extra["launches_per_iteration"] != {k: 1.0 for k in counts} \
+            or counts != want:
+        problems.append(f"launches {counts}, per iteration "
+                        f"{extra['launches_per_iteration']}")
+    if "trained_scene_ms" not in extra or "vs_sol" not in extra:
+        problems.append("no trained-scene time or vs_sol: "
+                        f"{extra.get('trained_scene_error')}")
+    if not (math.isfinite(record["value"]) and record["value"] > 0):
+        problems.append(f"headline {record['value']} ms")
+    if problems:
+        raise RuntimeError(f"bench: {problems}")
+
+    work, _ = bench.headline(device)
+    loss_k, grads_k, aux = bench.fwd_bwd(work)
+    p = [x.detach().requires_grad_(True) for x in work.params]
+    v = work.view
+    img, _, _ = rasterize.render(work.settings, v.tan_fovx, v.tan_fovy, 1.0,
+                                 *p, v.view, v.proj, v.campos, work.bg,
+                                 _compositing=PLAIN_COMPOSITING)
+    loss_p = l1_loss(img, work.target)
+    grads_p = torch.autograd.grad(loss_p, p)
+    loss_p = loss_p.detach()
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(check="headline iteration: loss kernels vs plain", loss=float(loss_k),
+        loss_plain=float(loss_p), rel=rel, pairs=int(aux.num_pairs),
+        kept_pairs=int(aux.num_kept))
+    if not rel < LOSS_REL_TOL or int(aux.num_pairs) > work.settings.pair_capacity \
+            or int(aux.num_kept) > work.settings.kept_capacity:
+        raise RuntimeError("headline iteration: loss or capacity check failed")
+    names = convert.PARAM_KEYS
+    check_grads("headline iteration: gradients kernels vs plain",
+                dict(zip(names, grads_k)), dict(zip(names, grads_p)),
+                flip_tolerant=True)
+
+    for rec in bench_suite.main(["--ply", str(scenes.LEGO_PLY)]):
+        if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+            raise RuntimeError(f"bench suite: {rec}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -798,6 +931,10 @@ def main() -> int:
     launches = phase_train(run)
     phase_step_vs_plain(run)
     k2_times = phase_train_timing(run)
+    del run
+    k3_errs = phase_k3_checks(device)
+    sol, k3_times = phase_sol(device)
+    phase_bench(device, sol)
     kernels = [
         {"name": "rasterize_fwd (K1)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
@@ -809,6 +946,13 @@ def main() -> int:
          "replaces": "gstpu/ops/pallas_rasterize.py:442",
          "launches": launches["rasterize_bwd"], **k2_errs,
          **k2_times, "library_ms": None}]
+    for form in ("sol_compositing_fwd", "sol_compositing_bwd"):
+        abs_err, rel_err = k3_errs[form]
+        kernels.append(
+            {"name": f"{form} (K3)", "route": "cuda",
+             "source": "gstpu_torch/csrc/sol_compositing.cu",
+             "replaces": "scripts/sol_model.py:80", "max_abs_err": abs_err,
+             "max_rel_err": rel_err, **k3_times[form], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,8 @@ Counterparts of ``gstpu/ops/pallas_rasterize.py``'s two TPU kernels:
   ``composite_backward``, whose epilogue (``rasterize.segment_sum_pair_rows``)
   stays PyTorch as the JAX package's does.
 
-Both include ``csrc/composite_common.cuh``.  Each source is compiled by its
-own ``nvcc`` for sm_90a into ``build/gstpu_torch/`` at first use (all
-started together; again whenever a source, the header or the flags change)
-and bound through ctypes.
+Both include ``csrc/composite_common.cuh``; ``ops/cuda_build.py`` builds
+and loads them.
 
 The wrappers take the arguments and return the outputs of the plain
 versions in ``ops/rasterize.py``.  For tensors on the CPU they run those
@@ -22,88 +20,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from gstpu_torch.config import RenderSettings, TILE_PIXELS
-from gstpu_torch.ops import rasterize
+from gstpu_torch.ops import cuda_build, rasterize
 from gstpu_torch.ops.binning import Pairs
 from gstpu_torch.ops.preprocess import PreprocessOut
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"rasterize_fwd": CSRC / "rasterize_fwd.cu",
-           "rasterize_bwd": CSRC / "rasterize_bwd.cu"}
-HEADER = CSRC / "composite_common.cuh"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gstpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
 # Kernel launches made by the wrappers (one per call on CUDA tensors).
-LAUNCHES = {name: 0 for name in SOURCES}
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       + ", ".join(p.name for p in SOURCES.values()))
-
-
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + HEADER.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
-
-
-def build() -> dict[str, tuple[Path, str, float]]:
-    """Compile every kernel library whose current source has no build yet,
-    one ``nvcc`` per source, all started together.
-
-    Returns {name: (library path, compiler output, seconds from the start of
-    the builds to the end of this one; 0.0 when an existing build was
-    reused)}.  A failed build raises.
-    """
-    out: dict[str, tuple[Path, str, float]] = {}
-    running = []
-    t0 = time.perf_counter()
-    for name, src in SOURCES.items():
-        lib = _library_path(name)
-        if lib.exists():
-            out[name] = (lib, "", 0.0)
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running.append((name, lib, tmp, cmd, proc))
-    failed = []
-    for name, lib, tmp, cmd, proc in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{log}")
-            continue
-        os.replace(tmp, lib)
-        out[name] = (lib, log, seconds)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
+LAUNCHES = {"rasterize_fwd": 0, "rasterize_bwd": 0}
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    path, _, _ = build()[name]
-    lib = ctypes.CDLL(str(path))
+    lib = cuda_build.library(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "rasterize_fwd":
         lib.gstpu_rasterize_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
@@ -113,19 +44,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.gstpu_rasterize_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                             i32, i32, ptr, i32, ptr]
         lib.gstpu_rasterize_bwd.restype = i32
-    lib.gstpu_cuda_error_string.argtypes = [i32]
-    lib.gstpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err != 0:
-        msg = lib.gstpu_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _gaussian_table(prep: PreprocessOut) -> torch.Tensor:
@@ -195,8 +114,8 @@ def composite_forward(prep: PreprocessOut, pairs: Pairs,
         pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
         t, settings.grid_x, int(row0), settings.row_stride,
         color.data_ptr(), dacc.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), _device_index(dev), stream)
-    _raise_on_error(lib, "rasterize_fwd", err)
+        n_contrib.data_ptr(), cuda_build.device_index(dev), stream)
+    cuda_build.raise_on_error(lib, "rasterize_fwd", err)
     LAUNCHES["rasterize_fwd"] += 1
     return color, dacc, final_t, n_contrib
 
@@ -240,8 +159,8 @@ def backward_rows(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
         table.data_ptr(), pairs.gauss_id.data_ptr(),
         pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
         pix_in.data_ptr(), t, settings.grid_x, int(row0),
-        settings.row_stride, rows.data_ptr(), _device_index(dev), stream)
-    _raise_on_error(lib, "rasterize_bwd", err)
+        settings.row_stride, rows.data_ptr(), cuda_build.device_index(dev), stream)
+    cuda_build.raise_on_error(lib, "rasterize_bwd", err)
     LAUNCHES["rasterize_bwd"] += 1
     return rows
 

@@ -9,13 +9,19 @@ semantics are kept exactly:
   convention): points transform as ``p_view = [p, 1] @ view``;
 - ``full_proj = world_to_camera_T @ proj_T``;
 - the projection matrix is the z_sign=+1, z in [0, 1] OpenGL-style matrix.
+
+``load_camera_from_json``, ``save_cameras_json`` and ``load_nerf_cameras``
+read a transforms-style JSON, write the official 3DGS viewer's
+``cameras.json`` and parse a NeRF-synthetic split.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Any, Dict
+import os
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
@@ -154,3 +160,75 @@ def orbit_camera(theta: float, radius: float, height: float, size: int,
     focal = 0.5 * size / np.tan(0.5 * camera_angle_x)
     return load_camera({"camera_id": 0, "camera_to_world": c2w,
                         "width": size, "height": size, "focal": focal})
+
+
+def load_camera_from_json(json_path: str, camera_id: int = 0,
+                          znear: float = 0.01, zfar: float = 100.0):
+    """Load one camera from a transforms-style JSON file (frame
+    ``camera_id``; width and height from ``w``/``width`` and
+    ``h``/``height``, else 800)."""
+    with open(json_path) as f:
+        transforms = json.load(f)
+    frame = transforms["frames"][camera_id]
+    width = transforms.get("w") or transforms.get("width") or 800
+    height = transforms.get("h") or transforms.get("height") or 800
+    focal = 0.5 * width / np.tan(0.5 * transforms["camera_angle_x"])
+    info = {"camera_id": camera_id,
+            "camera_to_world": frame["transform_matrix"],
+            "width": width, "height": height, "focal": focal,
+            "camera_type": frame.get("camera_type", "perspective"),
+            "distortion_params": frame.get("distortion_params",
+                                           [0.0, 0.0, 0.0, 0.0])}
+    return load_camera(info, znear=znear, zfar=zfar)
+
+
+def save_cameras_json(cameras: List[Dict[str, Any]], path,
+                      image_names: List[str] | None = None) -> None:
+    """Write the official 3DGS viewer ``cameras.json``: one entry per
+    camera with id, img_name, width, height, position, rotation (the
+    camera-to-world 3x3), fx and fy."""
+    entries = []
+    for i, cam in enumerate(cameras):
+        R_w2c = np.asarray(cam["R"], np.float64)
+        name = image_names[i] if image_names else f"{i:05d}"
+        entries.append({
+            "id": i,
+            "img_name": os.path.splitext(os.path.basename(name))[0],
+            "width": int(cam["width"]),
+            "height": int(cam["height"]),
+            "position": [float(x) for x in cam["camera_center"]],
+            "rotation": [[float(x) for x in row] for row in R_w2c.T],
+            "fx": float(cam["width"] / (2.0 * cam["tan_fovx"])),
+            "fy": float(cam["height"] / (2.0 * cam["tan_fovy"])),
+        })
+    with open(path, "w") as f:
+        json.dump(entries, f)
+
+
+def load_nerf_cameras(dataset_path: str, split: str,
+                      downscale: int = 1) -> Tuple[List[Dict[str, Any]],
+                                                   List[str]]:
+    """Parse ``transforms_{split}.json`` of a NeRF-synthetic dataset:
+    (cameras, image paths).  The image size is read from the first frame;
+    ``downscale`` divides it (official 3DGS ``-r``) and the pixel focal with
+    it, so the field of view is unchanged.  Needs ``imageio``."""
+    import imageio.v2 as imageio
+
+    transforms_path = os.path.join(dataset_path, f"transforms_{split}.json")
+    with open(transforms_path) as f:
+        transforms = json.load(f)
+
+    first = transforms["frames"][0]
+    img = imageio.imread(os.path.join(dataset_path,
+                                      first["file_path"] + ".png"))
+    height, width = img.shape[0] // downscale, img.shape[1] // downscale
+    focal = 0.5 * width / np.tan(0.5 * transforms["camera_angle_x"])
+
+    cameras, image_paths = [], []
+    for i, frame in enumerate(transforms["frames"]):
+        cameras.append(load_camera({
+            "camera_id": i, "camera_to_world": frame["transform_matrix"],
+            "width": width, "height": height, "focal": focal}))
+        image_paths.append(os.path.join(dataset_path,
+                                        frame["file_path"] + ".png"))
+    return cameras, image_paths

@@ -1,9 +1,12 @@
-"""Kernels K1 (``gstpu_torch/csrc/rasterize_fwd.cu``) and K2
-(``gstpu_torch/csrc/rasterize_bwd.cu``) on a CUDA card against their plain
-PyTorch versions, with the thresholds of ``chip_smoke``: K1 by
+"""Kernels K1 (``gstpu_torch/csrc/rasterize_fwd.cu``), K2
+(``gstpu_torch/csrc/rasterize_bwd.cu``) and K3
+(``gstpu_torch/csrc/sol_compositing.cu``) on a CUDA card against their
+plain PyTorch versions, with the thresholds of ``chip_smoke``: K1 by
 ``chip_smoke.compare``; K2 plus its epilogue within 1e-3 of each output's
 largest magnitude (the compiled gate's) of the stored JAX gradients, and
-flip-tolerant against the plain version on the card.
+flip-tolerant against the plain version on the card; K3 within
+``chip_smoke.K3_FWD_TOL`` (forward, absolute) and ``K3_BWD_REL_TOL``
+(backward, over each row's largest magnitude), every tile bit-identical.
 
 This file imports nothing of JAX, so it runs on a machine without it once
 ``tests/conftest.py`` (which imports jax) is left out:
@@ -17,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GRAD_NAMES, check_grads, compare
-from gstpu_torch import convert, scenes
+from chip_smoke import (GRAD_NAMES, K3_BWD_REL_TOL, K3_FWD_TOL, check_grads,
+                        compare)
+from gstpu_torch import convert, scenes, sol_model
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize
 from gstpu_torch.ops import rasterize
@@ -28,7 +32,7 @@ from gstpu_torch.ops.preprocess import preprocess
 
 def _cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 and K2 have no CPU form")
+        pytest.skip("needs a CUDA card: K1, K2 and K3 have no CPU form")
     return torch.device("cuda")
 
 
@@ -152,3 +156,33 @@ def test_backward_kernel_on_a_row_band_matches_plain_cuda():
                                         **inputs)
     assert float(want[3].abs().max()) > 0
     check_grads("row band", got, want, flip_tolerant=True)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("n_chunks", [1, 2, 5])
+def test_k3_matches_plain_cuda(n_chunks, backward):
+    feat = sol_model.feature_block(_cuda())
+    form = "sol_compositing_bwd" if backward else "sol_compositing_fwd"
+    before = sol_model.LAUNCHES[form]
+    got = sol_model.sol_compositing(feat, n_chunks, 37, backward)
+    torch.cuda.synchronize()
+    assert sol_model.LAUNCHES[form] == before + 1
+    bits = got.view(torch.int32)
+    assert bool((bits == bits[:1]).all())
+    want = sol_model.sol_compositing_plain(feat, n_chunks, 37, backward)
+    diff = (got.double() - want.double()).abs()
+    if backward:
+        scale = want.double().abs().amax(dim=(0, 2))
+        assert bool((diff.amax(dim=(0, 2)) / scale < K3_BWD_REL_TOL).all())
+    else:
+        assert float(diff.max()) < K3_FWD_TOL
+
+
+def test_k3_wrapper_rejects_bad_blocks_cuda():
+    feat = sol_model.feature_block(_cuda())
+    before = dict(sol_model.LAUNCHES)
+    with pytest.raises(TypeError, match="float32"):
+        sol_model.sol_compositing(feat.double(), 2, 4, False)
+    with pytest.raises(ValueError, match="block"):
+        sol_model.sol_compositing(feat[:, :8], 2, 4, True)
+    assert sol_model.LAUNCHES == before

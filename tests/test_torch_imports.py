@@ -28,7 +28,9 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_flax_or_gstpu():
     mods = ["gstpu_torch"] + _modules()
     for name in ("ops.cuda_rasterize", "ops.preprocess_bwd", "ops.losses",
-                 "optim", "scheduler", "models.gaussians", "trainer"):
+                 "optim", "scheduler", "models.gaussians", "trainer",
+                 "ops.cuda_build", "data.nerf", "ops.kernel_check",
+                 "sol_model", "bench", "bench_suite"):
         assert f"gstpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -47,6 +49,9 @@ def test_sources_name_no_jax_flax_or_gstpu_import():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_render.py",
         ROOT / "scripts" / "torch_profile_train.py",
         ROOT / "tests" / "test_torch_cuda.py"]
+    for name in ("sol_model.py", "bench.py", "bench_suite.py",
+                 "ops/kernel_check.py", "ops/cuda_build.py", "data/nerf.py"):
+        assert ROOT / "gstpu_torch" / name in files, name
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
