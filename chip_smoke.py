@@ -1,41 +1,54 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (gstpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--previous DIR]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and build: versions, the card's name and power limit, and the
    nvcc builds of every kernel (K1, csrc/rasterize_fwd.cu; K2,
-   csrc/rasterize_bwd.cu; K3, csrc/sol_compositing.cu), started together;
+   csrc/rasterize_bwd.cu; K3, csrc/sol_compositing.cu), started together,
+   with ptxas's registers, shared memory and spills;
 2. K1 against its plain PyTorch version on the card and against the stored
    JAX outputs, on (a) the stored gate (tests/golden/pallas_gate.npz,
    through gstpu_torch/ops/kernel_check.py),
    (b) the span edge cases, (c) one full-size 800x800 Lego view, close
-   enough that every tile is occupied;
+   enough that every tile is occupied; on (a) and (c), K1 asked for
+   checkpoints gives bit-identical outputs, writes the work items of their
+   plain version, and each checkpoint k is bit-equal to K1's final T, color
+   and inverse depth on the tile counts cut to k * segment;
 3. the render path: ``render_gaussians`` on the trained Lego point cloud
    (assets/lego_trained.ply, 129,053 Gaussians, SH degree 3) at 800x800
    from four orbit views, plus one ``render_forward`` view with
    tight_radius, pair_cull and a fitted kept_capacity; the launch counts
    are zeroed just before and read just after, and every image is held
    against the plain version's image of the same view;
-4. render times with CUDA events (medians after a warm-up) and K1's bound;
+4. render times with CUDA events (medians after a warm-up), K1's time
+   (``kernel_ms``: calls back to back) and bound, and a ``walk`` line per
+   view (orbit and close): the tiles' pair counts, the walk of the CTAs,
+   ``deepest_tile_ms`` (K1 with every other tile's count set to 0);
 5. K2 (with its epilogue, on K1's outputs, as the kernel gate runs it)
    against the stored JAX gradients of the gate, and against its plain
    version on the card on the gate, the high-opacity
    early-exit scene (tile starts off the multiples of 128, saturated
    pixels) and the close 800x800 view; two runs of K2 give bit-identical
-   rows on the gate and on the close view;
+   rows on the gate and on the close view; K2 from K1's checkpoints (the
+   main path's form) against the stored JAX gradients, against K2 from
+   T = 1 and against the plain version, two runs bit-identical, on the
+   gate, the early-exit scene and the close view;
 6. the main path, training: 20 ``train_step``s at full width on the
    perturbed trained Lego (capacity 193,579 with the alive mask), in the
    trainer's camera order over 8 orbit views whose targets are the port's
    renders of the unperturbed Lego; the launch counts are zeroed just
-   before and read just after (one K1 and one K2 launch per step), no step
+   before and read just after (one K1 and one K2 launch per step), K2 runs
+   from K1's checkpoints with more work items than tiles, no step
    overflows, loss and gradients are finite, and the L1 loss on a held-out
    orbit view falls;
 7. one step with K1 + K2 against the same step with the plain versions on
    the card, in the raw/L1 and the activated/SSIM configurations;
-8. training times with CUDA events and K2's bound;
+8. training times with CUDA events, K2's time from checkpoints (and from
+   T = 1, and at other segment lengths), K1's with and without
+   checkpoints, K2's bound and the ``walk`` line of the step's view;
 9. K3 (the speed-of-light model's compositing kernel), forward and backward,
    against its plain version on the card at 2,500 tiles and 1, 2 and 5
    chunks: every tile row bit-identical, two runs bit-identical, one launch
@@ -53,17 +66,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the same with the plain compositing; then the bench suite
    (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric.
 
+With ``--previous DIR`` (the parent commit's rasterize_fwd.cu,
+rasterize_bwd.cu and composite_common.cuh, for example from ``git show``
+into a directory that .gitignore lists) phase 1 builds them too, phases 2
+and 4 check that K1's outputs are bit-identical to the parent's on the
+gate, the close view and the orbit view, and phases 4 and 8 time the
+parent's K1 and K2 in turns with this tree's (``previous_ms``; null
+without the option).
+
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of gstpu.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import statistics
 import subprocess
 import sys
+from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -128,6 +153,19 @@ PERTURB_OPACITY = (0.5, 1.0)
 K3_CHUNKS = (1, 2, 5)
 K3_FWD_TOL = 1e-5
 K3_BWD_REL_TOL = 1e-5
+# K2's rows from K1's checkpoints against K2's rows from T = 1, over each
+# field's largest magnitude.  The checkpoint's prefix C . dL/dpix + D *
+# dL/ddepth is one expression, where the walk from T = 1 carries the
+# rounding of its running sum of w * cdot over up to a few thousand pairs
+# (some ulps of ctot_dot), which 1 / (1 - alpha) <= 100 amplifies; more
+# segments meet more of it.  Measured on the H100: 1.5e-6 on the gate and
+# 9.2e-6 on the close 800x800 view (3,288-pair tiles, segments of 256);
+# 2.7e-6 at most in the CPU tests' scenes
+# (tests/test_torch_backward.py::SEGMENT_TOL).
+K2_SEGMENT_ROW_TOL = 5e-5
+# K2's segment lengths timed at the step's view (the main path uses
+# cuda_rasterize.SEGMENT).
+SEGMENT_SWEEP = (256, 512, 1024)
 
 
 def log(**kw) -> None:
@@ -214,10 +252,20 @@ def fitted_cull_settings(params, cam) -> RenderSettings:
                           kept_capacity=kept_capacity)
 
 
-def walk_counts(prep, pairs, settings) -> tuple[int, int]:
-    """(evaluated, kept) (pixel, pair) steps of the sequential walk that K1
-    and K2 make on these inputs: a pixel evaluates its tile's pairs up to
-    and including the first passing pair that would take its transmittance
+class Walk(NamedTuple):
+    """The sequential walk that K1 and K2 make on some inputs."""
+    steps: torch.Tensor   # (T, 256) pairs each pixel evaluates
+    kept: int             # (pixel, pair) steps composited
+    warp_kept: int        # (warp of 32 pixels, pair) with at least one kept lane
+
+    @property
+    def evaluated(self) -> int:
+        return int(self.steps.sum(dtype=torch.int64))
+
+
+def walk(prep, pairs, settings) -> Walk:
+    """Count the walk: a pixel evaluates its tile's pairs up to and
+    including the first passing pair that would take its transmittance
     below 1e-4 (the break), or the whole tile if it never breaks; kept are
     the pairs it composites."""
     dev = prep.xy.device
@@ -227,7 +275,7 @@ def walk_counts(prep, pairs, settings) -> tuple[int, int]:
     trans = torch.ones((t, 256), dtype=torch.float32, device=dev)
     done = torch.zeros((t, 256), dtype=torch.bool, device=dev)
     brk = torch.full((t, 256), big, dtype=torch.int32, device=dev)
-    kept_steps = 0
+    kept_steps = warp_kept = 0
     chunk = 64
     n_chunks = int(((pairs.tile_count + chunk - 1) // chunk).max())
     for i in range(n_chunks):
@@ -243,11 +291,348 @@ def walk_counts(prep, pairs, settings) -> tuple[int, int]:
         brk = torch.minimum(brk, torch.where(cross, pos[None, None, :],
                                              big).amin(-1))
         kept_steps += int(kept.sum())
+        warp_kept += int(kept.view(t, 8, 32, -1).any(2).sum())
         p_last = torch.where(kept, p_incl, torch.inf).amin(-1)
         trans = torch.where(torch.isfinite(p_last), p_last, trans)
         done = done | cross.any(-1)
     steps = torch.where(brk < big, brk + 1, pairs.tile_count[:, None])
-    return int(steps.sum(dtype=torch.int64)), kept_steps
+    return Walk(steps.long(), kept_steps, warp_kept)
+
+
+def walk_iterations(cta_walk, count, batch: int, segment: int | None):
+    """Pair iterations of CTAs that walk their tile's segments of
+    ``segment`` pairs (None: the whole tile) in batches of ``batch`` and
+    leave after the batch in which every pixel is done (a segment that
+    starts with every pixel done is left at once)."""
+    seg = segment or max(int(count.max()), 1)
+    total = 0
+    for k in range(-(-max(int(count.max()), 1) // seg)):
+        length = torch.clamp(count - k * seg, 0, seg)
+        inside = torch.clamp(cta_walk - k * seg, min=0)
+        inside = torch.minimum(inside, length)
+        total += int(torch.minimum(length, -(-inside // batch) * batch).sum())
+    return total
+
+
+def walk_line(kernel: str, view: str, w: Walk, pairs, **extra) -> dict:
+    """The walk's statistics over the occupied tiles: ``tile_count`` max,
+    p99 and mean; the CTA walk (pairs walked until every pixel is done) max
+    and mean; K2's warp iterations as the parent kernel ran them (whole
+    tiles, batches of 128, 8 warps) and the warp-pairs with a kept lane."""
+    count = pairs.tile_count.long()
+    occ = count > 0
+    c = count[occ].double()
+    cta = w.steps.amax(1)
+    res = {"walk": kernel, "view": view, "occupied_tiles": int(occ.sum()),
+           "tile_count_max": int(c.max()),
+           "tile_count_p99": float(torch.quantile(c, 0.99)),
+           "tile_count_mean": float(c.mean()),
+           "cta_walk_max": int(cta[occ].max()),
+           "cta_walk_mean": float(cta[occ].double().mean()),
+           "evaluated_steps": w.evaluated, "kept_steps": w.kept,
+           "parent_k2_warp_iterations": 8 * walk_iterations(
+               cta, count, 128, None),
+           "k2_warp_pairs_with_a_kept_lane": w.warp_kept, **extra}
+    log(**res)
+    return res
+
+
+def only_deepest(pairs):
+    """``pairs`` with every tile's count but the deepest's set to 0."""
+    count = pairs.tile_count
+    keep = torch.zeros_like(count)
+    i = int(torch.argmax(count))
+    keep[i] = count[i]
+    return pairs._replace(tile_count=keep)
+
+
+def k1_walk_stats(w: Walk, pairs) -> dict:
+    """This tree's K1 on the walk: the walk of its CTAs, one per 64-pixel
+    strip of an occupied tile."""
+    strip = w.steps.view(-1, 4, 64).amax(-1)[pairs.tile_count > 0]
+    return {"k1_strip_walk_max": int(strip.max()),
+            "k1_strip_walk_mean": float(strip.double().mean())}
+
+
+def k2_walk_stats(w: Walk, pairs, segment: int) -> dict:
+    """This tree's K2 on the walk: its work items of ``segment`` pairs and
+    their warp iterations in batches of 64 (and as whole tiles)."""
+    count = pairs.tile_count.long()
+    cta = w.steps.amax(1)
+    work = cuda_rasterize.build_work_list(pairs.tile_count,
+                                          pairs.gauss_id.shape[0], segment)
+    return {"k2_segment": segment,
+            "k2_work_items": int(work.ends[-1]),
+            "k2_warp_iterations": 8 * walk_iterations(cta, count, 64, segment),
+            "k2_warp_iterations_whole_tiles": 8 * walk_iterations(
+                cta, count, 64, None)}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def bits_equal(a, b) -> bool:
+    return all(bool(torch.equal(_bits(x), _bits(y))) for x, y in zip(a, b))
+
+
+def k1_launcher(prep, pairs, settings, segment=None, index_order=False,
+                fn=None):
+    """A closure that launches K1 once on inputs prepared here (the table,
+    the outputs, the work list and checkpoint buffer), and its outputs, so
+    a timing of it is the kernel's own, without the wrapper's PyTorch ops.
+    ``fn``: another build's ``gstpu_rasterize_fwd`` (the same C interface);
+    ``index_order``: the tiles in index order in place of deepest first."""
+    fn = fn or cuda_rasterize._library("rasterize_fwd").gstpu_rasterize_fwd
+    dev = prep.xy.device
+    t = settings.band_tiles
+    table = cuda_rasterize._gaussian_table(prep)
+    outs = (torch.empty((t, 256, 3), device=dev),
+            torch.empty((t, 256), device=dev),
+            torch.empty((t, 256), device=dev),
+            torch.empty((t, 256), dtype=torch.int32, device=dev))
+    work = cuda_rasterize.build_work_list(
+        pairs.tile_count, pairs.gauss_id.shape[0],
+        segment or cuda_rasterize.WHOLE_TILE)
+    order = (torch.arange(t, dtype=torch.int32, device=dev) if index_order
+             else work.order)
+    state = (torch.empty((len(work.items), 6, 256), device=dev) if segment
+             else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = fn(table.data_ptr(), pairs.gauss_id.data_ptr(),
+                 pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
+                 order.data_ptr(), t, settings.grid_x, 0,
+                 settings.row_stride, segment or 0,
+                 work.ends.data_ptr() if segment else None,
+                 work.items.data_ptr() if segment else None,
+                 state.data_ptr() if segment else None,
+                 *(x.data_ptr() for x in outs),
+                 cuda_build.device_index(dev), stream)
+        if err:
+            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    return launch, outs
+
+
+def k2_launcher(prep, pairs, settings, inputs, checkpoints=None, fn=None):
+    """A closure that launches K2 once on inputs prepared here (the table,
+    the per-pixel planes, the rows), from ``checkpoints`` or from T = 1,
+    and its rows; ``fn`` as for ``k1_launcher``."""
+    fn = fn or cuda_rasterize._library("rasterize_bwd").gstpu_rasterize_bwd
+    dev = prep.xy.device
+    seg = checkpoints is not None
+    work = (checkpoints.work if seg else cuda_rasterize.build_work_list(
+        pairs.tile_count, pairs.gauss_id.shape[0]))
+    pix_in = cuda_rasterize.pixel_inputs(**{k: inputs[k] for k in (
+        "color_pre_bg", "final_t", "dl_dpix", "bg", "depth_acc",
+        "dl_ddepth")})
+    table = cuda_rasterize._gaussian_table(prep)
+    rows = torch.zeros((pairs.gauss_id.shape[0] + 1, 10), device=dev)
+    ctas = len(work.items) if seg else settings.band_tiles
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = fn(table.data_ptr(), pairs.gauss_id.data_ptr(),
+                 pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
+                 work.order.data_ptr(), work.items.data_ptr() if seg else None,
+                 work.ends[-1:].data_ptr() if seg else None, ctas,
+                 work.segment,
+                 checkpoints.state.data_ptr() if seg else None,
+                 pix_in.data_ptr(), settings.grid_x, 0, settings.row_stride,
+                 rows.data_ptr(), cuda_build.device_index(dev), stream)
+        if err:
+            raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+    return launch, rows
+
+
+def time_in_turns(previous, current) -> tuple[float, float, list]:
+    """The parent's and this tree's time of the same call, in turns
+    (previous, current, current, previous), each by ``kernel_ms``; returns
+    the two means and the four times."""
+    turns = [kernel_ms(previous), kernel_ms(current), kernel_ms(current),
+             kernel_ms(previous)]
+    return (0.5 * (turns[0] + turns[3]), 0.5 * (turns[1] + turns[2]), turns)
+
+
+class PreviousKernels:
+    """The parent commit's K1 and K2, built from a directory that holds
+    their sources as the parent has them (``rasterize_fwd.cu``,
+    ``rasterize_bwd.cu`` and ``composite_common.cuh``, for example from
+    ``git show HEAD:gstpu_torch/csrc/<file>``) with this tree's flags, and
+    launched through the parent's C interface: one CTA per tile in index
+    order, no work list and no checkpoints.  For timing in turns with this
+    tree's kernels and for the bit-identity of K1's outputs; the launches
+    are not counted."""
+
+    def __init__(self, src: Path):
+        out = cuda_build.BUILD_DIR / "previous"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in ("rasterize_fwd", "rasterize_bwd"):
+            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(src),
+                   "-o", str(out / f"{name}.so"), str(src / f"{name}.cu")]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            build_log, _ = proc.communicate()
+            log(previous_kernel=name, source=str(src / f"{name}.cu"),
+                returncode=proc.returncode)
+            print(build_log.strip(), flush=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building the parent's {name} failed")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        self.fwd = ctypes.CDLL(str(out / "rasterize_fwd.so"))
+        self.fwd.gstpu_rasterize_fwd.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32,
+            ptr]
+        self.bwd = ctypes.CDLL(str(out / "rasterize_bwd.so"))
+        self.bwd.gstpu_rasterize_bwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
+
+    @staticmethod
+    def _table(prep):
+        """The parent's (N, 10) records: this tree's without the padding."""
+        return cuda_rasterize._gaussian_table(prep)[:, :10].contiguous()
+
+    @staticmethod
+    def _raise(err: int, name: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"the parent's {name} failed: CUDA error {err}")
+
+    def forward_launcher(self, prep, pairs, settings):
+        """A closure launching the parent's K1 once on prepared inputs, and
+        its outputs (as ``k1_launcher``)."""
+        t = settings.band_tiles
+        dev = prep.xy.device
+        table = self._table(prep)
+        out = (torch.empty((t, 256, 3), dtype=torch.float32, device=dev),
+               torch.empty((t, 256), dtype=torch.float32, device=dev),
+               torch.empty((t, 256), dtype=torch.float32, device=dev),
+               torch.empty((t, 256), dtype=torch.int32, device=dev))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            self._raise(self.fwd.gstpu_rasterize_fwd(
+                table.data_ptr(), pairs.gauss_id.data_ptr(),
+                pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(), t,
+                settings.grid_x, 0, settings.row_stride,
+                *(x.data_ptr() for x in out), cuda_build.device_index(dev),
+                stream), "K1")
+        return launch, out
+
+    def rows_launcher(self, prep, pairs, settings, color_pre_bg, final_t,
+                      dl_dpix, bg, depth_acc, dl_ddepth):
+        """A closure launching the parent's K2 once on prepared inputs, and
+        its rows (as ``k2_launcher``)."""
+        t = settings.band_tiles
+        dev = prep.xy.device
+        pix_in = cuda_rasterize.pixel_inputs(color_pre_bg, final_t, dl_dpix,
+                                             bg, depth_acc, dl_ddepth)
+        table = self._table(prep)
+        rows = torch.zeros((pairs.gauss_id.shape[0] + 1, 10),
+                           dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            self._raise(self.bwd.gstpu_rasterize_bwd(
+                table.data_ptr(), pairs.gauss_id.data_ptr(),
+                pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
+                pix_in.data_ptr(), t, settings.grid_x, 0,
+                settings.row_stride, rows.data_ptr(),
+                cuda_build.device_index(dev), stream), "K2")
+        return launch, rows
+
+    def forward(self, prep, pairs, settings):
+        launch, out = self.forward_launcher(prep, pairs, settings)
+        launch()
+        return out
+
+
+def k1_checkpoint_checks(name: str, prep, pairs, settings,
+                         segment: int = cuda_rasterize.SEGMENT) -> dict:
+    """K1 asked for checkpoints gives outputs bit-identical to K1 without;
+    checkpoint k of every tile with a k-th segment is bit-equal to the final
+    T, color and inverse depth of K1 run on the tile counts cut to k *
+    segment.  Raises otherwise."""
+    plain = cuda_rasterize.composite_forward(prep, pairs, settings)
+    *outs, ckpt = cuda_rasterize.composite_forward_checkpointed(
+        prep, pairs, settings, segment=segment)
+    identical = bits_equal(outs, plain)
+    n = int(ckpt.work.ends[-1])
+    items = ckpt.work.items[:n]
+    items_ok = bool(torch.equal(items, cuda_rasterize.work_items(
+        ckpt.work, pairs.tile_count)[:n]))
+    compared, mismatched = 0, 0
+    for k in range(1, int(items[:, 1].max()) + 1):
+        cut = torch.clamp(pairs.tile_count, max=k * segment)
+        color, dacc, final_t, _ = cuda_rasterize.composite_forward(
+            prep, pairs._replace(tile_count=cut), settings)
+        at_k = items[:, 1] == k
+        tiles = items[at_k, 0].long()
+        want = torch.cat([final_t[tiles, None], color[tiles].transpose(1, 2),
+                          dacc[tiles, None]], dim=1)
+        state = ckpt.state[:n][at_k, :5]
+        mismatched += int((_bits(state) != _bits(want)).sum())
+        compared += int(tiles.numel())
+    res = {"check": f"{name}: K1 checkpoints", "segment": segment,
+           "outputs_bit_identical_without_checkpoints": identical,
+           "work_items": n, "items_equal_plain_version": items_ok,
+           "checkpoints_compared": compared,
+           "mismatched_values": mismatched}
+    res["ok"] = bool(identical and items_ok and compared > 0
+                     and mismatched == 0)
+    log(**res)
+    if not res["ok"]:
+        raise RuntimeError(f"{name}: K1 checkpoint check failed: {res}")
+    return res
+
+
+def k2_segmented_checks(name: str, prep, pairs, settings, inputs) -> dict:
+    """K2 from K1's checkpoints against K2 from T = 1 (one item per tile):
+    rows within K2_SEGMENT_ROW_TOL of each field's largest magnitude; and,
+    with its epilogue, against the plain version (flip-tolerant); two runs
+    from the checkpoints bit-identical.  Raises otherwise."""
+    *_, ckpt = cuda_rasterize.composite_forward_checkpointed(
+        prep, pairs, settings, row0=inputs.get("row0", 0))
+    seg = [cuda_rasterize.backward_rows(prep, pairs, settings, **inputs,
+                                        checkpoints=ckpt) for _ in range(2)]
+    whole = cuda_rasterize.backward_rows(prep, pairs, settings, **inputs)
+    scale = whole.abs().amax(dim=0).clamp(min=1e-30)
+    row_err = float(((seg[0] - whole).abs().amax(dim=0) / scale).max())
+    items = int(ckpt.work.ends[-1])
+    res = {"check": f"{name}: K2 from checkpoints", "work_items": items,
+           "occupied_tiles": int((pairs.tile_count > 0).sum()),
+           "row_err_vs_whole_tiles": row_err,
+           "runs_bit_identical": bool(torch.equal(_bits(seg[0]),
+                                                  _bits(seg[1])))}
+    res["ok"] = res["runs_bit_identical"] and row_err < K2_SEGMENT_ROW_TOL
+    log(**res)
+    if not res["ok"]:
+        raise RuntimeError(f"{name}: segmented K2 check failed: {res}")
+    got = rasterize.segment_sum_pair_rows(seg[0], pairs, settings)
+    want = rasterize.composite_backward(prep, pairs, settings, **inputs)
+    return check_grads(f"{name}: K2 from checkpoints vs plain on the card",
+                       got, want, flip_tolerant=True)
+
+
+def kernel_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """A kernel wrapper's time per call: the median over ``reps`` of CUDA
+    events around ``calls`` calls back to back, over ``calls`` (so the
+    host's launches of one call overlap the device work of the last)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -298,14 +683,30 @@ def phase_build() -> None:
             print(build_log.strip(), flush=True)
 
 
-def phase_kernel_checks(params, size: int, device) -> float:
+def k1_vs_previous(name: str, previous, prep, pairs, settings) -> bool:
+    """K1's four outputs bit-identical to the parent's K1; raises if not."""
+    same = bits_equal(cuda_rasterize.composite_forward(prep, pairs, settings),
+                      previous.forward(prep, pairs, settings))
+    log(check=f"{name}: K1 bit-identical to the parent's K1",
+        bit_identical=same)
+    if not same:
+        raise RuntimeError(f"{name}: K1 differs from the parent's K1")
+    return same
+
+
+def phase_kernel_checks(params, size: int, device, previous=None) -> float:
     """K1 against the plain version (and the stored JAX outputs on the
-    gate); returns the max color error off boundary at the Lego view."""
+    gate), K1 with checkpoints against K1 without and against K1 on cut
+    counts, and against the parent's K1 when given; returns the max color
+    error off boundary at the Lego view."""
     log(phase=2)
     gate = kernel_check.load_gate(device)
     compare("gate: kernel vs stored JAX outputs",
             kernel_check.gate_forward(gate), gate.stored)
     kernel_vs_plain("gate", gate.prep, gate.pairs, gate.settings)
+    k1_checkpoint_checks("gate", gate.prep, gate.pairs, gate.settings, 512)
+    if previous is not None:
+        k1_vs_previous("gate", previous, gate.prep, gate.pairs, gate.settings)
 
     settings, prep_np, pairs_np = scenes.span_edge_case()
     kernel_vs_plain("span edge cases",
@@ -322,6 +723,10 @@ def phase_kernel_checks(params, size: int, device) -> float:
         pairs=int(pairs.num_pairs))
     if occupied != full.num_tiles:
         raise RuntimeError("the full-size Lego view leaves tiles empty")
+    k1_checkpoint_checks(f"lego close {size}x{size}", prep, pairs, full)
+    if previous is not None:
+        k1_vs_previous(f"lego close {size}x{size}", previous, prep, pairs,
+                       full)
     return kernel_vs_plain(f"lego {size}x{size}", prep, pairs,
                            full)["color_err"]
 
@@ -381,8 +786,35 @@ def phase_main_path(params, size: int, device, bg) -> int:
     return counts["rasterize_fwd"]
 
 
-def phase_timing(params, size: int, device, bg) -> dict:
-    """Medians of CUDA-event times at the first orbit view; K1's bound."""
+def k1_times(name: str, prep, pairs, settings, previous):
+    """K1's time on these inputs: the kernel's own (``k1_launcher``), in
+    turns with the parent's K1 (whose outputs must be bit-identical) when
+    given, and the wrapper's; the walk line with ``deepest_tile_ms``;
+    returns (ms, the walk, the parent's ms or None)."""
+    current = k1_launcher(prep, pairs, settings)[0]
+    deep = only_deepest(pairs)
+    extra, previous_ms = {}, None
+    if previous is not None:
+        k1_vs_previous(name, previous, prep, pairs, settings)
+        previous_ms, ms, turns = time_in_turns(
+            previous.forward_launcher(prep, pairs, settings)[0], current)
+        extra = {"previous_ms": previous_ms, "turns_ms": turns,
+                 "previous_deepest_tile_ms": kernel_ms(
+                     previous.forward_launcher(prep, deep, settings)[0])}
+    else:
+        ms = kernel_ms(current)
+    w = walk(prep, pairs, settings)
+    walk_line("K1", name, w, pairs, k1_ms=ms,
+              deepest_tile_ms=kernel_ms(k1_launcher(prep, deep, settings)[0]),
+              wrapper_ms=kernel_ms(lambda: cuda_rasterize.composite_forward(
+                  prep, pairs, settings)),
+              **k1_walk_stats(w, pairs), **extra)
+    return ms, w, previous_ms
+
+
+def phase_timing(params, size: int, device, bg, previous=None) -> dict:
+    """Medians of CUDA-event times at the first orbit view and the close
+    view (in turns with the parent's K1 when given); K1's bound."""
     log(phase=4)
     n = params["positions"].shape[0]
     cam = scenes.lego_orbit(THETAS[0], size)
@@ -391,11 +823,11 @@ def phase_timing(params, size: int, device, bg) -> dict:
     frame_ms = time_ms(lambda: render_view(params, cam, size, bg, device), 20)
     prep_bin_ms = time_ms(lambda: prep_and_pairs(params, cam, settings), 20)
     prep, pairs = prep_and_pairs(params, cam, settings)
-    k1_ms = time_ms(lambda: cuda_rasterize.composite_forward(
-        prep, pairs, settings), 50)
+    k1_ms, w, previous_ms = k1_times("orbit theta=0", prep, pairs, settings,
+                                     previous)
     plain_ms = time_ms(lambda: rasterize.composite_forward(
         prep, pairs, settings), 5, warmup=1)
-    steps, _ = walk_counts(prep, pairs, settings)
+    steps = w.evaluated
     t = settings.num_tiles
     pair_slots = int(pairs.tile_count.sum())
     nbytes = (n * RECORD_BYTES + pair_slots * 4 + t * 8
@@ -405,16 +837,16 @@ def phase_timing(params, size: int, device, bg) -> dict:
     bound_ms = max(flop_ms, byte_ms)
     c_prep, c_pairs = prep_and_pairs(params, scenes.lego_close_view(size),
                                      settings)
-    log(view="close, every tile occupied", pairs=int(c_pairs.num_pairs),
-        k1_ms=time_ms(lambda: cuda_rasterize.composite_forward(
-            c_prep, c_pairs, settings), 20))
+    k1_times("close, every tile occupied", c_prep, c_pairs, settings,
+             previous)
     log(frame_ms=frame_ms, preprocess_binning_ms=prep_bin_ms, k1_ms=k1_ms,
         plain_ms=plain_ms, pairs=int(pairs.num_pairs), steps=steps,
         bytes=nbytes, flop_bound_ms=flop_ms, byte_bound_ms=byte_ms,
         bound_share=bound_ms / k1_ms,
         library_ms=None, library_note="no single PyTorch call computes "
         "this compositing")
-    return {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": k1_ms, "previous_ms": previous_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
@@ -470,9 +902,10 @@ def k2_deterministic(name: str, prep, pairs, settings, inputs) -> None:
 
 
 def phase_k2_checks(params, size: int, device) -> dict:
-    """K2 + epilogue against the stored JAX gradients and its plain version;
-    returns the largest absolute and relative errors against the plain
-    version at the close 800x800 view."""
+    """K2 + epilogue against the stored JAX gradients and its plain version,
+    from T = 1 and from K1's checkpoints; returns the largest absolute and
+    relative errors of K2 from checkpoints against the plain version at the
+    close 800x800 view."""
     log(phase=5)
     gate = kernel_check.load_gate(device)
     fwd = kernel_check.gate_forward(gate)
@@ -489,6 +922,14 @@ def phase_k2_checks(params, size: int, device) -> dict:
                   dl_ddepth=gate.ct_d)
     k2_vs_plain("gate", gate.prep, gate.pairs, gate.settings, inputs)
     k2_deterministic("gate", gate.prep, gate.pairs, gate.settings, inputs)
+    # the main path's form: K2 from K1's checkpoints
+    *_, ckpt = cuda_rasterize.composite_forward_checkpointed(
+        gate.prep, gate.pairs, gate.settings)
+    check_grads("gate: K2 from checkpoints + epilogue vs stored JAX gradients",
+                cuda_rasterize.composite_backward(
+                    gate.prep, gate.pairs, gate.settings, **inputs,
+                    checkpoints=ckpt), want, flip_tolerant=False)
+    k2_segmented_checks("gate", gate.prep, gate.pairs, gate.settings, inputs)
 
     settings, p_np, cam, dl_dpix, dl_ddepth, bg = scenes.early_exit_scene()
     p = convert.params_from_numpy(p_np, device)
@@ -506,11 +947,12 @@ def phase_k2_checks(params, size: int, device) -> dict:
     if misaligned == 0 or saturated == 0:
         raise RuntimeError("the early-exit scene needs tile starts off the "
                            "multiples of 128 and saturated pixels")
-    k2_vs_plain("early-exit scene", prep, pairs, settings, dict(
-        color_pre_bg=color, final_t=final_t,
-        dl_dpix=torch.tensor(dl_dpix, device=device),
-        bg=torch.tensor(bg, device=device), depth_acc=dacc,
-        dl_ddepth=torch.tensor(dl_ddepth, device=device)))
+    inputs = dict(color_pre_bg=color, final_t=final_t,
+                  dl_dpix=torch.tensor(dl_dpix, device=device),
+                  bg=torch.tensor(bg, device=device), depth_acc=dacc,
+                  dl_ddepth=torch.tensor(dl_ddepth, device=device))
+    k2_vs_plain("early-exit scene", prep, pairs, settings, inputs)
+    k2_segmented_checks("early-exit scene", prep, pairs, settings, inputs)
 
     n = params["positions"].shape[0]
     full = RenderSettings(width=size, height=size,
@@ -522,9 +964,10 @@ def phase_k2_checks(params, size: int, device) -> dict:
     if occupied != full.num_tiles:
         raise RuntimeError("the full-size Lego view leaves tiles empty")
     inputs = backward_inputs(prep, pairs, full, np.random.default_rng(11))
-    errs = k2_vs_plain(f"lego close {size}x{size}", prep, pairs, full, inputs)
+    k2_vs_plain(f"lego close {size}x{size}", prep, pairs, full, inputs)
     k2_deterministic(f"lego close {size}x{size}", prep, pairs, full, inputs)
-    return errs
+    return k2_segmented_checks(f"lego close {size}x{size}", prep, pairs, full,
+                               inputs)
 
 
 def lego_models(device, capacity_headroom: float):
@@ -609,7 +1052,7 @@ def phase_train(run: TrainRun) -> dict:
     torch.cuda.synchronize()
     for k in launches:
         launches[k] = 0
-    losses, counts, views = [], [], []
+    losses, counts, views, items = [], [], [], []
     for _ in range(TRAIN_STEPS):
         i = run.next_view()
         views.append(i)
@@ -621,6 +1064,7 @@ def phase_train(run: TrainRun) -> dict:
         if any(launches[k] - was[k] != 1 for k in launches):
             raise RuntimeError(f"step {run.iteration}: launches {was} -> "
                                f"{dict(launches)}, not one each")
+        items.append(cuda_rasterize.LAST_WORK_LIST["rasterize_bwd"])
         losses.append(loss)
         counts.append(cnt)
         if not bool(torch.isfinite(grad_pos).all()):
@@ -628,6 +1072,12 @@ def phase_train(run: TrainRun) -> dict:
                                "gradient")
     torch.cuda.synchronize()
     got = dict(launches)
+    # K2's work: (tile, segment) items from K1's checkpoints, not whole tiles
+    segments = [w.segment for w in items]
+    real = [w.items[:int(w.ends[-1])] for w in items]
+    work_items = sum(int(r.shape[0]) for r in real)
+    item_tiles = sum(int(torch.unique(r[:, 0]).numel()) for r in real)
+    split = [bool((r[:, 1] > 0).any()) for r in real]
     after = run.held_out_loss()
     losses = torch.stack(losses).cpu().numpy()
     counts = torch.stack(counts).cpu().numpy()
@@ -639,9 +1089,15 @@ def phase_train(run: TrainRun) -> dict:
     log(path="train", launches=got, views=views, losses=losses.tolist(),
         max_pairs=int(counts[:, 0].max()), max_kept=int(counts[:, 1].max()),
         held_out_l1_before=before, held_out_l1_after=after,
-        finite_moments=finite_moments, finite_params=finite_params)
+        finite_moments=finite_moments, finite_params=finite_params,
+        k2_segments=sorted(set(segments)), k2_work_items=work_items,
+        k2_item_tiles=item_tiles, steps_with_a_split_tile=sum(split))
     if got != {"rasterize_fwd": TRAIN_STEPS, "rasterize_bwd": TRAIN_STEPS}:
         raise RuntimeError(f"{got} launches for {TRAIN_STEPS} train steps")
+    if set(segments) != {cuda_rasterize.SEGMENT} or work_items <= item_tiles:
+        raise RuntimeError("the main path's K2 did not run from K1's "
+                           f"checkpoints in segments: {segments}, {split}, "
+                           f"{work_items} items over {item_tiles} tiles")
     if (counts[:, 0] > run.settings.pair_capacity).any() \
             or (counts[:, 1] > run.settings.kept_capacity).any():
         raise RuntimeError("a train step overflowed its pair capacity")
@@ -649,7 +1105,10 @@ def phase_train(run: TrainRun) -> dict:
         raise RuntimeError("non-finite loss, gradient or parameter")
     if not after < before:
         raise RuntimeError(f"held-out L1 did not fall: {before} -> {after}")
-    return got
+    return {"launches": got,
+            "work_items": {"rasterize_fwd": TRAIN_STEPS * 4
+                           * run.settings.band_tiles,
+                           "rasterize_bwd": work_items}}
 
 
 def activated(model: GaussianModel) -> GaussianModel:
@@ -685,9 +1144,10 @@ def phase_step_vs_plain(run: TrainRun) -> None:
                     grads_p, flip_tolerant=True)
 
 
-def phase_train_timing(run: TrainRun) -> dict:
+def phase_train_timing(run: TrainRun, previous=None) -> dict:
     """Medians of CUDA-event times of the main path's parts at its shapes
-    (the trained model, the next view of the camera order); K2's bound."""
+    (the trained model, the next view of the camera order), K2 in turns
+    with the parent's K2 when given; K2's bound."""
     log(phase=8)
     i = run.next_view()
     view, proj, campos, tanx, tany, target = run.view_args(i)
@@ -713,24 +1173,58 @@ def phase_train_timing(run: TrainRun) -> dict:
                                         alive=model.alive), 10)
 
     with torch.no_grad():
-        (image, _, aux), (prep, pairs, color, dacc) = rasterize._render_fwd(
-            *fwd_args, 0, cuda_rasterize.composite_forward)
+        (image, _, aux), (prep, pairs, color, dacc, ckpt) = \
+            rasterize._render_fwd(
+                *fwd_args, 0, cuda_rasterize.composite_forward_checkpointed)
     final_t = aux.final_t
     dl_dpix = rasterize.image_to_tiles(l1_pixel_gradients(image, target), s)
     inputs = dict(color_pre_bg=color, final_t=final_t, dl_dpix=dl_dpix,
                   bg=run.bg, depth_acc=dacc,
                   dl_ddepth=torch.zeros_like(final_t))
-    k2_ms = time_ms(lambda: cuda_rasterize.backward_rows(prep, pairs, s,
-                                                         **inputs), 20)
-    rows = cuda_rasterize.backward_rows(prep, pairs, s, **inputs)
-    epilogue_ms = time_ms(lambda: rasterize.segment_sum_pair_rows(
-        rows, pairs, s), 20)
+
+    def k2(pairs=pairs, checkpoints=ckpt):
+        """K2 launched alone, as the main path runs it: from checkpoints."""
+        return k2_launcher(prep, pairs, s, inputs, checkpoints)[0]
+
+    extra, previous_ms = {}, None
+    deep = only_deepest(pairs)
+    if previous is not None:
+        previous_ms, k2_ms, turns = time_in_turns(
+            previous.rows_launcher(prep, pairs, s, **inputs)[0], k2())
+        extra = {"previous_ms": previous_ms, "turns_ms": turns,
+                 "previous_deepest_tile_ms": kernel_ms(
+                     previous.rows_launcher(prep, deep, s, **inputs)[0])}
+    else:
+        k2_ms = kernel_ms(k2())
+    deep_ckpt = cuda_rasterize.composite_forward_checkpointed(prep, deep,
+                                                              s)[4]
+    # K1 at this view, without and with checkpoints; K2 from T = 1 (one
+    # item per tile) and from checkpoints of other segment lengths; K2's
+    # wrapper (its PyTorch ops and the launch)
+    extra.update(
+        k1_ms=kernel_ms(k1_launcher(prep, pairs, s)[0]),
+        k1_checkpoints_ms=kernel_ms(k1_launcher(
+            prep, pairs, s, segment=cuda_rasterize.SEGMENT)[0]),
+        k2_whole_tiles_ms=kernel_ms(k2(checkpoints=None)),
+        k2_segment_ms={seg: kernel_ms(k2(
+            checkpoints=cuda_rasterize.composite_forward_checkpointed(
+                prep, pairs, s, segment=seg)[4])) for seg in SEGMENT_SWEEP},
+        wrapper_ms=kernel_ms(lambda: cuda_rasterize.backward_rows(
+            prep, pairs, s, **inputs, checkpoints=ckpt)))
+    rows = cuda_rasterize.backward_rows(prep, pairs, s, **inputs,
+                                        checkpoints=ckpt)
+    epilogue_ms = kernel_ms(lambda: rasterize.segment_sum_pair_rows(
+        rows, pairs, s))
     # the same function as the plain version: K2 and its epilogue
-    k2_epilogue_ms = time_ms(lambda: cuda_rasterize.composite_backward(
-        prep, pairs, s, **inputs), 20)
+    k2_epilogue_ms = kernel_ms(lambda: cuda_rasterize.composite_backward(
+        prep, pairs, s, **inputs, checkpoints=ckpt))
     plain_ms = time_ms(lambda: rasterize.composite_backward(
         prep, pairs, s, **inputs), 3, warmup=1)
-    steps, kept = walk_counts(prep, pairs, s)
+    w = walk(prep, pairs, s)
+    steps, kept = w.evaluated, w.kept
+    walk_line("K2", f"train step view {i}", w, pairs, k2_ms=k2_ms,
+              deepest_tile_ms=kernel_ms(k2(deep, deep_ckpt)),
+              **k2_walk_stats(w, pairs, cuda_rasterize.SEGMENT), **extra)
     n = prep.xy.shape[0]
     t = s.band_tiles
     slots = int(pairs.tile_count.sum())
@@ -749,16 +1243,13 @@ def phase_train_timing(run: TrainRun) -> dict:
         flop_bound_ms=flop_ms, byte_bound_ms=byte_ms,
         bound_share=bound_ms / k2_ms, library_ms=None,
         library_note="no single PyTorch call computes this backward")
-    return {"ms": k2_ms, "ms_with_epilogue": k2_epilogue_ms,
+    return {"ms": k2_ms, "previous_ms": previous_ms,
+            "ms_with_epilogue": k2_epilogue_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "times_cover": "ms and bound_ms: K2 alone (per-pair rows); "
             "ms_with_epilogue and plain_ms: per-Gaussian gradients (K2 or "
             "the plain walk, then the per-Gaussian sums)"}
-
-
-def _bits(x: torch.Tensor) -> torch.Tensor:
-    return x.contiguous().view(torch.int32)
 
 
 def phase_k3_checks(device) -> dict:
@@ -847,7 +1338,10 @@ def phase_sol(device) -> tuple[dict, dict]:
             plain_ms=plain_ms, bound_share=bound["bound_ms"] / ms,
             card=sol["device"], library_ms=None,
             library_note="no single PyTorch call computes this", **bound)
-        out[form] = {"launches": counts[form], "ms": ms, "plain_ms": plain_ms,
+        # one CTA per tile in each launch
+        out[form] = {"launches": counts[form],
+                     "work_items": counts[form] * sol_model.TILES,
+                     "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound["bound_ms"],
                      "bound_by": bound["bound_by"]}
     return sol, out
@@ -914,23 +1408,33 @@ def phase_bench(device, sol: dict) -> None:
             raise RuntimeError(f"bench suite: {rec}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--previous", type=Path, default=None,
+        help="a directory holding the parent commit's rasterize_fwd.cu, "
+        "rasterize_bwd.cu and composite_common.cuh: build them too, time "
+        "them in turns with this tree's K1 and K2 (previous_ms) and check "
+        "that K1's outputs are bit-identical")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     phase_build()
+    previous = PreviousKernels(args.previous) if args.previous else None
     params = convert.params_from_numpy(scenes.lego_params(), device)
     bg = torch.zeros(3, dtype=torch.float32, device=device)
-    k1_err = phase_kernel_checks(params, SIZE, device)
+    k1_err = phase_kernel_checks(params, SIZE, device, previous)
     phase_main_path(params, SIZE, device, bg)
-    k1_times = phase_timing(params, SIZE, device, bg)
+    k1_times = phase_timing(params, SIZE, device, bg, previous)
     k2_errs = phase_k2_checks(params, SIZE, device)
     run = TrainRun(SIZE, device)
-    launches = phase_train(run)
+    main_path = phase_train(run)
+    launches, work_items = main_path["launches"], main_path["work_items"]
     phase_step_vs_plain(run)
-    k2_times = phase_train_timing(run)
+    k2_times = phase_train_timing(run, previous)
     del run
     k3_errs = phase_k3_checks(device)
     sol, k3_times = phase_sol(device)
@@ -939,12 +1443,14 @@ def main() -> int:
         {"name": "rasterize_fwd (K1)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:160",
-         "launches": launches["rasterize_fwd"], "max_abs_err": k1_err,
+         "launches": launches["rasterize_fwd"],
+         "work_items": work_items["rasterize_fwd"], "max_abs_err": k1_err,
          **k1_times, "library_ms": None},
         {"name": "rasterize_bwd (K2)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:442",
-         "launches": launches["rasterize_bwd"], **k2_errs,
+         "launches": launches["rasterize_bwd"],
+         "work_items": work_items["rasterize_bwd"], **k2_errs,
          **k2_times, "library_ms": None}]
     for form in ("sol_compositing_fwd", "sol_compositing_bwd"):
         abs_err, rel_err = k3_errs[form]
@@ -952,7 +1458,9 @@ def main() -> int:
             {"name": f"{form} (K3)", "route": "cuda",
              "source": "gstpu_torch/csrc/sol_compositing.cu",
              "replaces": "scripts/sol_model.py:80", "max_abs_err": abs_err,
-             "max_rel_err": rel_err, **k3_times[form], "library_ms": None})
+             "max_rel_err": rel_err, **k3_times[form], "previous_ms": None,
+             "previous_note": "K3 is the parent's kernel, unchanged",
+             "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

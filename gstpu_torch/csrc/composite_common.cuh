@@ -14,42 +14,55 @@
 namespace gstpu {
 
 constexpr int kTileSide = 16;
-constexpr int kPixels = kTileSide * kTileSide;  // threads per CTA
-constexpr int kRecord = 10;                     // floats per Gaussian record
+constexpr int kPixels = kTileSide * kTileSide;  // pixels per tile
+
+// A Gaussian's packed record, as the wrapper writes the table (12 floats a
+// row, 16-byte aligned, so it moves in three 16-byte loads):
+// q0 = (x, y, conic a, conic b), q1 = (conic c, opacity, r, g),
+// q2 = (b, inverse depth, pad, pad).
+struct Record {
+  float4 q0, q1, q2;
+};
+constexpr int kRecord = 12;  // floats per row of the table
 
 // The float32 roundings of the double constants the JAX code compares with.
 constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
 constexpr float kAlphaMax = static_cast<float>(0.99);
 constexpr float kTEps = static_cast<float>(1e-4);
 
+// A checkpoint is a pixel's forward state at a pair position k*segment of
+// its tile: kCkptFields planes of kPixels floats, in this order.  The
+// forward kernel writes the slot of work item (tile, k) and the item; the
+// backward kernel's CTA for that slot starts from it.
+enum CkptField { kCkptT, kCkptR, kCkptG, kCkptB, kCkptD, kCkptDone,
+                 kCkptFields };
+// The forward kernel stages this many pairs per batch; a segment is a
+// multiple of it, so every checkpoint falls on a batch start.
+constexpr int kFwdBatch = 256;
+
 struct PairAlpha {
   float dx, dy;  // Gaussian center minus pixel center
-  float g;       // exp(power)
+  float g;       // exp(power) where the pair passes
   float alpha;   // min(0.99, opacity * g)
+  bool pass;     // false where the reference `continue`s
 };
 
-// Alpha of one pair at one pixel with the reference's individual skips.
-// Returns false where the reference `continue`s: power > 0 (or NaN) or
-// alpha < 1/255 (or NaN).  `rec` is a structure of arrays of `stride` floats
-// per field: x, y, conic a/b/c, opacity (the rest is not read here).
-__device__ __forceinline__ bool pair_alpha(const float* rec, int stride,
-                                           int j, float pix_x, float pix_y,
-                                           PairAlpha* out) {
-  const float dx = rec[0 * stride + j] - pix_x;
-  const float dy = rec[1 * stride + j] - pix_y;
-  const float power =
-      -0.5f * (rec[2 * stride + j] * dx * dx + rec[4 * stride + j] * dy * dy) -
-      rec[3 * stride + j] * dx * dy;
-  if (!(power <= 0.0f)) return false;
-  const float g = expf(power);
-  const float a = rec[5 * stride + j] * g;
-  const float alpha = a > kAlphaMax ? kAlphaMax : a;  // NaN stays NaN
-  if (!(alpha >= kAlphaMin)) return false;
-  out->dx = dx;
-  out->dy = dy;
-  out->g = g;
-  out->alpha = alpha;
-  return true;
+// Alpha of one pair at one pixel with the reference's individual skips:
+// the pair does not pass where power > 0 (or NaN) or alpha < 1/255 (or
+// NaN).  No branch: exp takes min(power, 0), which is power wherever the
+// pair passes, so the alphas of several pairs can be computed side by side.
+__device__ __forceinline__ PairAlpha pair_alpha(const Record& r, float pix_x,
+                                                float pix_y) {
+  PairAlpha o;
+  o.dx = r.q0.x - pix_x;
+  o.dy = r.q0.y - pix_y;
+  const float power = -0.5f * (r.q0.z * o.dx * o.dx + r.q1.x * o.dy * o.dy) -
+                      r.q0.w * o.dx * o.dy;
+  o.g = expf(fminf(power, 0.0f));
+  const float a = r.q1.y * o.g;
+  o.alpha = a > kAlphaMax ? kAlphaMax : a;  // NaN stays NaN
+  o.pass = power <= 0.0f && o.alpha >= kAlphaMin;
+  return o;
 }
 
 // Transmittance after a pair of this alpha; the pixel is done (and the pair
@@ -58,7 +71,18 @@ __device__ __forceinline__ float next_transmittance(float t, float alpha) {
   return t * (1.0f - alpha);
 }
 
-// Pixel-center coordinates of thread p of band tile `tile`.
+// Stage record `gid` of the table into shared memory.
+__device__ __forceinline__ void load_record(const float* __restrict__ table,
+                                            int gid, Record* dst) {
+  const float4* r =
+      reinterpret_cast<const float4*>(table + static_cast<size_t>(gid) *
+                                                  kRecord);
+  dst->q0 = r[0];
+  dst->q1 = r[1];
+  dst->q2 = r[2];
+}
+
+// Pixel-center coordinates of pixel p of band tile `tile`.
 __device__ __forceinline__ void pixel_center(int tile, int p, int grid_x,
                                              int row0, int row_stride,
                                              float* pix_x, float* pix_y) {

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel gstpu/ops/pallas_rasterize.py::_bwd_kernel (with
 // the row layout that its epilogue reads).  The plain PyTorch version of the
 // same function is gstpu_torch/ops/rasterize.py::composite_backward; the
-// wrapper that builds and launches this file, and runs the epilogue, is
-// gstpu_torch/ops/cuda_rasterize.py.
+// wrapper that builds and launches this file, builds its work list and runs
+// the epilogue, is gstpu_torch/ops/cuda_rasterize.py.
 //
 // What it computes.  For every pair slot q of a tile's depth-sorted range
 // [tile_start, tile_start + tile_count) it writes one row of ten sums over
@@ -14,38 +14,51 @@
 // tile's early exit, and slots of no tile, are not written: the wrapper
 // allocates the rows zeroed.
 //
-// Design.  The same shape as the forward kernel: one CTA of 256 threads per
-// tile of the band, one thread per pixel, the tile's Gaussian records staged
-// in shared memory in batches of 128.  Each thread walks the pairs in
-// forward order, as the TPU kernel does, keeping its pixel's transmittance,
-// done flag and the running prefix of w*cdot (the JAX kernel's tdp rows):
+// The walk.  Each thread walks its pixel's pairs in forward order, as the
+// TPU kernel does, keeping the pixel's transmittance, done flag and the
+// running prefix of w*cdot (the JAX kernel's tdp rows):
 //
 //   cdot = rgb . dL/dpix + invdepth * dL/ddepth;   prefix += w*cdot
 //   dL/dalpha = cdot*T - (ctot_dot - prefix)/(1-alpha)
 //               - final_T*bg_dot/(1-alpha)
 //
 // where ctot_dot = color . dL/dpix + depth * dL/ddepth and bg_dot = bg .
-// dL/dpix per pixel come in from the wrapper.  A forward-order walk needs no
-// n_contrib and no division to undo T, and it reuses the forward's alpha and
-// transmittance arithmetic from composite_common.cuh bit for bit, so the
-// kept set is exactly the one the forward kernel composited.
+// dL/dpix per pixel come in from the wrapper.  The forward's alpha and
+// transmittance arithmetic comes from composite_common.cuh bit for bit, so
+// the kept set is exactly the one the forward kernel composited.
 //
-// Per-pair sums without float atomics: the loop over a batch is warp-uniform
-// (a done pixel or a skipped pair contributes exact zeros), each warp sums
-// its 32 lanes' ten values with a fixed shuffle tree (skipped when no lane
-// kept the pair), lane 0 writes the warp's partials to shared memory, and
-// after the batch each (pair, field) is summed over the 8 warps in order by
-// one thread and written once.  Two runs on the same inputs give
-// bit-identical rows.
+// What bounds it on this card.  The fp32 ALU over the evaluated (pixel,
+// pair) steps, plus the gradient terms of the kept steps and the sums over
+// pixels; the bytes (one 48-byte record and one 40-byte row per pair slot,
+// 28 bytes per pixel) are small beside them.  As in the forward, one deep
+// tile's serial walk would set the time of a whole launch; the design:
 //
-// Bound on this card: the fp32 ALU over the evaluated (pixel, pair) steps,
-// as for the forward kernel, plus the gradient terms of the kept steps and
-// the sums over pixels; the bytes (one 40-byte record and one 40-byte row
-// per pair slot, 28 bytes per pixel) are small beside them.  This first
-// version pays for determinism with 50 shuffles per warp for every pair that
-// some lane of the warp kept, and with the same load imbalance across tiles
-// as the forward kernel; reducing fewer fields per shuffle, a transposed
-// reduction and balancing tiles are later work.
+// - Segments.  One CTA of 256 threads (one per pixel) per work item (tile,
+//   k): the pairs [k*segment, (k+1)*segment) of the tile.  The item starts
+//   from the forward kernel's checkpoint of that position (T, done, and the
+//   color and inverse depth so far, from which prefix = C . dL/dpix +
+//   D * dL/ddepth), so T, and with it the kept set, is the forward's float
+//   bit for bit; only the prefix rounds differently.  Each pair slot's row
+//   is written by exactly one CTA: no atomics, and the rows are
+//   deterministic.  Without checkpoints every item is a whole tile starting
+//   at T = 1 (the same kernel).
+// - Deepest first: the items come in the order of their tiles' tile_count,
+//   descending, a tile's segments in order.  The forward kernel writes the
+//   item list beside the checkpoints (item b starts from checkpoint b); the
+//   wrapper launches a fixed bound of CTAs, and those past the item count
+//   return at once, so nothing is read back to the host.
+// - Sums over a warp by a transposed reduction: each lane's ten values,
+//   padded to 16, are halved by exchanges at lane distances 16, 8, 4 and 2
+//   (each lane keeps the half its partner sends away) and summed at distance
+//   1: 8+4+2+1+1 = 16 shuffles per pair in place of 10 trees of 5.  Lane 2f
+//   ends holding field f's warp sum, in a fixed order, and writes it to
+//   shared memory; after each batch one thread per (pair, field) adds the 8
+//   warp partials in order and writes the row.  A pair no lane of the warp
+//   kept is not reduced.
+// - Batches of 64 pairs: the warp partials take 20,480 B of shared memory.
+//   ptxas gives 62 registers, so 4 CTAs (32 warps) fit on an SM; a launch
+//   bound that asks for 5 or 6 (48 or 40 registers, spilling at 40) ran
+//   slower on the H100 (PERF.md).
 //
 // Numerics as the forward kernel: no fast math, -fmad=false, expf.
 
@@ -56,33 +69,76 @@
 namespace {
 
 using gstpu::kPixels;
-using gstpu::kRecord;
 
-constexpr int kBatch = 128;            // pairs staged per batch
+constexpr int kBatch = 64;             // pairs staged per batch
 constexpr int kRows = 10;              // gradient sums per pair
+constexpr int kPadded = 16;            // kRows padded for the transposed sum
 constexpr int kWarps = kPixels / 32;
 constexpr int kPixIn = 7;              // per-pixel input planes
 constexpr unsigned kFull = 0xffffffffu;
+
+// One exchange of the transposed sum: lanes with `bit` set keep the upper
+// `half` of v[0, 2*half) and send the lower one, the others the reverse;
+// each adds what its partner at lane distance `bit` sent.
+template <int kHalf>
+__device__ __forceinline__ void exchange(float (&v)[kPadded], int lane,
+                                         int bit) {
+  const bool upper = lane & bit;
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) {
+    const float send = upper ? v[k] : v[k + kHalf];
+    const float keep = upper ? v[k + kHalf] : v[k];
+    v[k] = keep + __shfl_xor_sync(kFull, send, bit);
+  }
+}
+
+// The warp's sum of field (lane >> 1) of v; v[kRows, kPadded) are zero.
+__device__ __forceinline__ float transposed_sum(float (&v)[kPadded],
+                                                int lane) {
+  exchange<8>(v, lane, 16);
+  exchange<4>(v, lane, 8);
+  exchange<2>(v, lane, 4);
+  exchange<1>(v, lane, 2);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
+}
 
 __global__ void __launch_bounds__(kPixels)
 rasterize_bwd_kernel(const float* __restrict__ table,
                      const int* __restrict__ gauss_id,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
+                     const int* __restrict__ order,
+                     const int2* __restrict__ items,
+                     const int* __restrict__ num_items, int segment,
+                     const float* __restrict__ ckpt,
                      const float* __restrict__ pix_in,
                      int grid_x, int row0, int row_stride,
                      float* __restrict__ rows) {
-  __shared__ float rec[kRecord][kBatch];               //  5,120 B
-  __shared__ float part[kWarps][kBatch * kRows];       // 40,960 B
+  __shared__ gstpu::Record rec[kBatch];                //  3,072 B
+  __shared__ float part[kWarps][kBatch * kRows];       // 20,480 B
 
-  const int tile = blockIdx.x;
+  // work item blockIdx.x: the whole tile order[b] from T = 1, or segment
+  // item.y of tile item.x from K1's checkpoint b
+  const int b = blockIdx.x;
+  int2 item = make_int2(0, 0);
+  if (ckpt == nullptr) {
+    item.x = order[b];
+  } else {
+    if (b >= *num_items) return;                        // a pad
+    item = items[b];
+  }
+  const int tile = item.x;
+  const int count = tile_count[tile];
+  const int first = item.y * segment;
+  if (first >= count) return;
+  const int length = min(segment, count - first);
+  const int start = tile_start[tile] + first;
+
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
   float pix_x, pix_y;
   gstpu::pixel_center(tile, p, grid_x, row0, row_stride, &pix_x, &pix_y);
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
 
   // (T, 7, 256) planes: ctot_dot, bg_dot, final_T, dL/dpix r g b, dL/ddepth
   const float* in = pix_in + static_cast<size_t>(tile) * kPixIn * kPixels + p;
@@ -97,40 +153,46 @@ rasterize_bwd_kernel(const float* __restrict__ table,
   float trans = 1.0f;
   float prefix = 0.0f;
   bool done = false;
+  if (ckpt != nullptr) {
+    const float* c =
+        ckpt + static_cast<size_t>(b) * gstpu::kCkptFields * kPixels + p;
+    trans = c[gstpu::kCkptT * kPixels];
+    prefix = c[gstpu::kCkptR * kPixels] * ct_r +
+             c[gstpu::kCkptG * kPixels] * ct_g +
+             c[gstpu::kCkptB * kPixels] * ct_b +
+             c[gstpu::kCkptD * kPixels] * ct_d;
+    done = c[gstpu::kCkptDone * kPixels] != 0.0f;
+  }
+  if (__syncthreads_count(done) == kPixels) return;
 
-  for (int base = 0; base < count; base += kBatch) {
-    const int batch = min(kBatch, count - base);
-    if (p < batch) {
-      const float* r =
-          table + static_cast<size_t>(gauss_id[start + base + p]) * kRecord;
-#pragma unroll
-      for (int f = 0; f < kRecord; ++f) rec[f][p] = r[f];
-    }
+  for (int base = 0; base < length; base += kBatch) {
+    const int batch = min(kBatch, length - base);
+    if (p < batch) gstpu::load_record(table, gauss_id[start + base + p], &rec[p]);
     __syncthreads();
 
     for (int j = 0; j < batch; ++j) {  // uniform: every lane reaches the shuffles
-      float v[kRows];
+      float v[kPadded];
 #pragma unroll
-      for (int f = 0; f < kRows; ++f) v[f] = 0.0f;
+      for (int f = 0; f < kPadded; ++f) v[f] = 0.0f;
       bool kept = false;
-      gstpu::PairAlpha pa;
-      if (!done &&
-          gstpu::pair_alpha(&rec[0][0], kBatch, j, pix_x, pix_y, &pa)) {
+      const gstpu::Record r = rec[j];
+      const gstpu::PairAlpha pa = gstpu::pair_alpha(r, pix_x, pix_y);
+      if (!done && pa.pass) {
         const float test_t = gstpu::next_transmittance(trans, pa.alpha);
         if (test_t < gstpu::kTEps) {
           done = true;
         } else {
           kept = true;
           const float w = pa.alpha * trans;
-          const float cdot = rec[6][j] * ct_r + rec[7][j] * ct_g +
-                             rec[8][j] * ct_b + rec[9][j] * ct_d;
+          const float cdot = r.q1.z * ct_r + r.q1.w * ct_g + r.q2.x * ct_b +
+                             r.q2.y * ct_d;
           prefix += w * cdot;
           const float inv_one_m = 1.0f / (1.0f - pa.alpha);
           const float dl_dalpha = cdot * trans -
                                   (ctot_dot - prefix) * inv_one_m -
                                   (final_t * inv_one_m) * bg_dot;
-          const float ca = rec[2][j], cb = rec[3][j], cc = rec[4][j];
-          const float dl_dg = rec[5][j] * dl_dalpha;
+          const float ca = r.q0.z, cb = r.q0.w, cc = r.q1.x;
+          const float dl_dg = r.q1.y * dl_dalpha;
           const float gdx = pa.g * pa.dx;
           const float gdy = pa.g * pa.dy;
           const float dg_ddelx = -gdx * ca - gdy * cb;
@@ -148,20 +210,9 @@ rasterize_bwd_kernel(const float* __restrict__ table,
           trans = test_t;
         }
       }
-      float* out = &part[warp][j * kRows];
-      if (__any_sync(kFull, kept)) {
-#pragma unroll
-        for (int f = 0; f < kRows; ++f) {
-          float s = v[f];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            s += __shfl_down_sync(kFull, s, off);
-          if (lane == 0) out[f] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int f = 0; f < kRows; ++f) out[f] = 0.0f;
-      }
+      const float s = __any_sync(kFull, kept) ? transposed_sum(v, lane) : 0.0f;
+      if ((lane & 1) == 0 && (lane >> 1) < kRows)
+        part[warp][j * kRows + (lane >> 1)] = s;
     }
     __syncthreads();
 
@@ -182,19 +233,25 @@ rasterize_bwd_kernel(const float* __restrict__ table,
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError().
+// Launches `ctas` CTAs on `stream` and returns cudaGetLastError().
+// Without checkpoints (`ckpt` null) CTA b walks the whole tile order[b];
+// with them, CTA b < *num_items walks the segment items[b] = (tile, k) of
+// `segment` pairs from checkpoint b, and the CTAs past *num_items return.
 int gstpu_rasterize_bwd(const float* table, const int* gauss_id,
                         const int* tile_start, const int* tile_count,
-                        const float* pix_in, int num_tiles, int grid_x,
+                        const int* order, const int* items,
+                        const int* num_items, int ctas, int segment,
+                        const float* ckpt, const float* pix_in, int grid_x,
                         int row0, int row_stride, float* rows, int device,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_tiles > 0) {
-    rasterize_bwd_kernel<<<num_tiles, kPixels, 0,
+  if (ctas > 0) {
+    rasterize_bwd_kernel<<<ctas, kPixels, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        table, gauss_id, tile_start, tile_count, pix_in, grid_x, row0,
-        row_stride, rows);
+        table, gauss_id, tile_start, tile_count, order,
+        reinterpret_cast<const int2*>(items), num_items, segment, ckpt,
+        pix_in, grid_x, row0, row_stride, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

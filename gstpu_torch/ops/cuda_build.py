@@ -58,7 +58,9 @@ def build() -> dict[str, tuple[Path, str, float]]:
 
     Returns {name: (library path, compiler output, seconds from the start of
     the builds to the end of this one; 0.0 when an existing build was
-    reused)}.  A failed build raises.
+    reused)}.  The compiler output (with ptxas's registers, shared memory
+    and spills) is kept beside the library and returned for a reused build
+    too.  A failed build raises.
     """
     out: dict[str, tuple[Path, str, float]] = {}
     running = []
@@ -66,7 +68,8 @@ def build() -> dict[str, tuple[Path, str, float]]:
     for name, src in SOURCES.items():
         lib = _library_path(name)
         if lib.exists():
-            out[name] = (lib, "", 0.0)
+            log = lib.with_suffix(".log")
+            out[name] = (lib, log.read_text() if log.exists() else "", 0.0)
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -82,6 +85,7 @@ def build() -> dict[str, tuple[Path, str, float]]:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
         out[name] = (lib, log, seconds)
     if failed:

@@ -380,11 +380,14 @@ def image_to_tiles(img: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
 
 
 def _kernel_compositing():
-    """(composite_forward, composite_backward) of a render: the kernel
-    wrappers, which run the plain versions for CPU tensors."""
+    """(composite_forward, composite_backward) of the differentiable
+    render: the kernel wrappers, which run the plain versions for CPU
+    tensors; the forward also returns K1's checkpoints for K2 (None on the
+    CPU)."""
     # cuda_rasterize imports this module for the plain versions
     from gstpu_torch.ops import cuda_rasterize
-    return cuda_rasterize.composite_forward, cuda_rasterize.composite_backward
+    return (cuda_rasterize.composite_forward_checkpointed,
+            cuda_rasterize.composite_backward)
 
 
 def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
@@ -392,7 +395,9 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                 shs, view, proj, campos, bg, alive, row0: int,
                 composite_fwd):
     """Forward render; returns ((image, depth, RenderAux), (prep, pairs,
-    color, dacc)), the second tuple being what the backward needs."""
+    color, dacc, *rest)), the second tuple being what the backward needs:
+    ``rest`` is what ``composite_fwd`` returns past its four outputs (the
+    checkpoints of ``cuda_rasterize.composite_forward_checkpointed``)."""
     if settings.shard_axis is not None:
         raise NotImplementedError("the sharded render is not ported yet")
     prep = preprocess(means, scales, rotations, opacities, shs,
@@ -413,8 +418,8 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                         cull_tcut=cull_tcut, row0=row0,
                         row_stride=settings.row_stride,
                         kept_capacity=settings.kept_capacity)
-    color, dacc, final_t, n_contrib = composite_fwd(prep, pairs, settings,
-                                                    row0=row0)
+    color, dacc, final_t, n_contrib, *rest = composite_fwd(
+        prep, pairs, settings, row0=row0)
 
     image_tiles = color + final_t[:, :, None] * bg[None, None, :]
     image = tiles_to_image(image_tiles, settings)
@@ -422,7 +427,7 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     aux = RenderAux(radii=prep.radii, num_pairs=pairs.num_pairs,
                     final_t=final_t, n_contrib=n_contrib, xy=prep.xy,
                     num_kept=pairs.num_kept)
-    return (image, depth, aux), (prep, pairs, color, dacc)
+    return (image, depth, aux), (prep, pairs, color, dacc, *rest)
 
 
 def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
@@ -431,12 +436,14 @@ def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     """Forward render without autograd: returns (image (H,W,3), depth (H,W),
     RenderAux), the forward of ``render``.
 
-    Compositing runs the CUDA kernel for tensors on a CUDA device and the
-    plain version for tensors on the CPU.
+    Compositing runs the CUDA kernel for tensors on a CUDA device (without
+    checkpoints: no backward follows) and the plain version for tensors on
+    the CPU.
     """
+    from gstpu_torch.ops import cuda_rasterize
     return _render_fwd(settings, tan_fovx, tan_fovy, scale_modifier, means,
                        scales, rotations, opacities, shs, view, proj, campos,
-                       bg, alive, row0, _kernel_compositing()[0])[0]
+                       bg, alive, row0, cuda_rasterize.composite_forward)[0]
 
 
 _N_PREP = len(PreprocessOut._fields)
@@ -445,18 +452,22 @@ _N_PAIRS = len(Pairs._fields)
 
 class _Render(torch.autograd.Function):
     """Custom-VJP render (``gstpu/ops/rasterize.py::render``,
-    ``_render_fwd`` and ``_render_bwd``)."""
+    ``_render_fwd`` and ``_render_bwd``).  Checkpoints that the forward
+    compositing returns (K1's, on the card) go to the backward compositing
+    (K2)."""
 
     @staticmethod
     def forward(ctx, settings, tan_fovx, tan_fovy, scale_modifier, row0,
                 compositing, means, scales, rotations, opacities, shs, view,
                 proj, campos, bg, alive):
-        (image, depth, aux), (prep, pairs, color, dacc) = _render_fwd(
+        (image, depth, aux), (prep, pairs, color, dacc, *rest) = _render_fwd(
             settings, tan_fovx, tan_fovy, scale_modifier, means, scales,
             rotations, opacities, shs, view, proj, campos, bg, alive, row0,
             compositing[0])
         ctx.static = (settings, tan_fovx, tan_fovy, scale_modifier, row0,
                       compositing[1])
+        # K1's checkpoints are the kernels' state, not autograd inputs
+        ctx.checkpoints = rest[0] if rest else None
         ctx.save_for_backward(*prep, *pairs, color, dacc, aux.final_t, means,
                               scales, rotations, shs, view, proj, campos, bg)
         ctx.mark_non_differentiable(*aux)
@@ -466,6 +477,8 @@ class _Render(torch.autograd.Function):
     def backward(ctx, ct_image, ct_depth, *_aux_cotangents):
         (settings, tan_fovx, tan_fovy, scale_modifier, row0,
          composite_bwd) = ctx.static
+        checkpoints = ({} if ctx.checkpoints is None
+                       else {"checkpoints": ctx.checkpoints})
         saved = ctx.saved_tensors
         prep = PreprocessOut(*saved[:_N_PREP])
         pairs = Pairs(*saved[_N_PREP:_N_PREP + _N_PAIRS])
@@ -478,7 +491,7 @@ class _Render(torch.autograd.Function):
         dl_ddepth = image_to_tiles(ct_depth, settings)
         d_color, d_mean2d, d_conic, d_opac, d_invd = composite_bwd(
             prep, pairs, settings, color, final_t, dl_dpix, bg, row0=row0,
-            depth_acc=dacc, dl_ddepth=dl_ddepth)
+            depth_acc=dacc, dl_ddepth=dl_ddepth, **checkpoints)
 
         focal_x = settings.width / (2.0 * tan_fovx)
         focal_y = settings.height / (2.0 * tan_fovy)
@@ -517,8 +530,8 @@ def render(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
 
     Gradients flow to ``means``, ``scales``, ``rotations``, ``opacities``
     and ``shs`` through the hand-written backward: compositing adjoint (the
-    CUDA kernel K2 and its epilogue for CUDA tensors, the plain version for
-    CPU tensors), then the preprocess adjoint chain with the reference's
+    CUDA kernel K2 and its epilogue for CUDA tensors, from K1's checkpoints;
+    the plain version for CPU tensors), then the preprocess adjoint chain with the reference's
     quirks under ``settings.parity``.  ``alive`` is an (N,) bool mask of
     capacity padding.  ``_compositing``, a (composite_forward,
     composite_backward) pair in place of the kernel wrappers, is for checks

@@ -10,9 +10,10 @@ takes 5 steps to leave the start, and prints JSON lines:
 
 - the median CUDA-event time of each stage of one ``train_step`` at the
   next view of the camera order: forward (preprocess, band clip, pair-cull
-  threshold, binning, K1, image assembly), loss and its pixel gradient,
-  backward (K2, epilogue, the four adjoints of the preprocess chain and the
-  depth chain), Adam; and of the whole ``train_step``;
+  threshold, binning, K1 with its checkpoints, image assembly), loss and
+  its pixel gradient, backward (K2 from K1's checkpoints, epilogue, the four
+  adjoints of the preprocess chain and the depth chain), Adam; and of the
+  whole ``train_step``;
 - from ``torch.profiler`` over 5 steps: the device time per step, the share
   of the steps' wall time in which the device was idle, and the operators
   with the most device time.
@@ -108,7 +109,8 @@ def main() -> int:
                            cull_tcut=tcut, kept_capacity=s.kept_capacity)
 
     pairs = run_binning()
-    color, dacc, final_t, _ = cuda_rasterize.composite_forward(prep, pairs, s)
+    color, dacc, final_t, _, ckpt = \
+        cuda_rasterize.composite_forward_checkpointed(prep, pairs, s)
 
     def assemble():
         return (R.tiles_to_image(color + final_t[:, :, None] * bg, s),
@@ -119,7 +121,8 @@ def main() -> int:
     zeros = torch.zeros_like(final_t)
     bwd_in = dict(color_pre_bg=color, final_t=final_t, dl_dpix=dl_dpix,
                   bg=bg, depth_acc=dacc, dl_ddepth=zeros)
-    rows = cuda_rasterize.backward_rows(prep, pairs, s, **bwd_in)
+    rows = cuda_rasterize.backward_rows(prep, pairs, s, **bwd_in,
+                                        checkpoints=ckpt)
     d_color, d_mean2d, d_conic, _, d_invd = R.segment_sum_pair_rows(
         rows, pairs, s)
     focal_x = s.width / (2.0 * tanx)
@@ -140,15 +143,15 @@ def main() -> int:
             prep.rect, prep.tiles_touched, 0, s.band_rows, s.row_stride),
         "forward.pair_cull_threshold": lambda: R.pair_cull_threshold(prep),
         "forward.binning": run_binning,
-        "forward.k1": lambda: cuda_rasterize.composite_forward(prep, pairs,
-                                                               s),
+        "forward.k1": lambda: cuda_rasterize.composite_forward_checkpointed(
+            prep, pairs, s),
         "forward.image_assembly": assemble,
         "loss.l1_and_pixel_grad": loss_and_pixel_grad,
         "backward.image_to_tiles": lambda: (R.image_to_tiles(image, s),
                                             R.image_to_tiles(image[..., 0],
                                                              s)),
-        "backward.k2": lambda: cuda_rasterize.backward_rows(prep, pairs, s,
-                                                            **bwd_in),
+        "backward.k2": lambda: cuda_rasterize.backward_rows(
+            prep, pairs, s, **bwd_in, checkpoints=ckpt),
         "backward.epilogue": lambda: R.segment_sum_pair_rows(rows, pairs, s),
         "backward.cov2d": lambda: preprocess_bwd.cov2d_backward(
             p["positions"], prep.cov3d, prep.radii, focal_x, focal_y, tanx,

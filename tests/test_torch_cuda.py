@@ -4,7 +4,13 @@
 plain PyTorch versions, with the thresholds of ``chip_smoke``: K1 by
 ``chip_smoke.compare``; K2 plus its epilogue within 1e-3 of each output's
 largest magnitude (the compiled gate's) of the stored JAX gradients, and
-flip-tolerant against the plain version on the card; K3 within
+flip-tolerant against the plain version on the card; K1's checkpoints
+(outputs bit-identical with and without them, each checkpoint bit-equal to
+K1 on cut tile counts) and K2 from them (``chip_smoke.k2_segmented_checks``:
+against K2 from T = 1 within ``K2_SEGMENT_ROW_TOL`` of each field's largest
+magnitude, two runs bit-identical, flip-tolerant against the plain version),
+on the gate and on a row band; the wrappers' checks of work lists and
+checkpoint buffers; K3 within
 ``chip_smoke.K3_FWD_TOL`` (forward, absolute) and ``K3_BWD_REL_TOL``
 (backward, over each row's largest magnitude), every tile bit-identical.
 
@@ -21,7 +27,7 @@ import pytest
 import torch
 
 from chip_smoke import (GRAD_NAMES, K3_BWD_REL_TOL, K3_FWD_TOL, check_grads,
-                        compare)
+                        compare, k1_checkpoint_checks, k2_segmented_checks)
 from gstpu_torch import convert, scenes, sol_model
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize
@@ -156,6 +162,84 @@ def test_backward_kernel_on_a_row_band_matches_plain_cuda():
                                         **inputs)
     assert float(want[3].abs().max()) > 0
     check_grads("row band", got, want, flip_tolerant=True)
+
+
+def _gate_band(device):
+    """The gate's Gaussians binned to tile rows 1, 3, 5, 7, 9 (row0 1, row
+    stride 2), its K1 outputs and seeded cotangents."""
+    g = np.load(scenes.GATE_NPZ)
+    settings = RenderSettings(width=160, height=160, pair_capacity=1 << 16,
+                              tile_rows=5, row_stride=2)
+    prep = convert.prep_from_numpy(g, device)
+    rect, tiles = rasterize.clip_rect_to_band(prep.rect, prep.tiles_touched,
+                                              1, settings.band_rows, 2)
+    pairs = build_pairs(tiles, rect, prep.depth, settings.grid_x,
+                        settings.band_tiles, settings.pair_capacity, row0=1,
+                        row_stride=2)
+    color, dacc, final_t, _ = cuda_rasterize.composite_forward(
+        prep, pairs, settings, row0=1)
+    rng = np.random.default_rng(5)
+    t = settings.band_tiles
+    inputs = dict(color_pre_bg=color, final_t=final_t, depth_acc=dacc,
+                  dl_dpix=torch.tensor(rng.normal(size=(t, 256, 3)),
+                                       dtype=torch.float32, device=device),
+                  dl_ddepth=torch.tensor(rng.normal(size=(t, 256)),
+                                         dtype=torch.float32, device=device),
+                  bg=torch.tensor([0.2, 0.1, 0.4], device=device), row0=1)
+    return settings, prep, pairs, inputs
+
+
+@pytest.mark.parametrize("segment", [256, 512])
+def test_forward_kernel_checkpoints_cuda(segment):
+    settings, prep, pairs = _case("gate", _cuda())
+    res = k1_checkpoint_checks("gate", prep, pairs, settings, segment)
+    assert res["ok"] and res["checkpoints_compared"] > 0
+
+
+@pytest.mark.parametrize("case", ["gate", "band"])
+def test_segmented_backward_kernel_matches_whole_tiles_and_plain_cuda(case):
+    device = _cuda()
+    if case == "gate":
+        settings, prep, pairs = _case("gate", device)
+        inputs = _gate_backward_inputs(device)[1]
+    else:
+        settings, prep, pairs, inputs = _gate_band(device)
+    assert int(pairs.tile_count.max()) > cuda_rasterize.SEGMENT
+    before = cuda_rasterize.LAUNCHES["rasterize_bwd"]
+    k2_segmented_checks(case, prep, pairs, settings, inputs)
+    torch.cuda.synchronize()
+    assert cuda_rasterize.LAUNCHES["rasterize_bwd"] == before + 3
+    work = cuda_rasterize.LAST_WORK_LIST["rasterize_bwd"]
+    assert work.segment == cuda_rasterize.WHOLE_TILE  # the last: T = 1
+    *_, ckpt = cuda_rasterize.composite_forward_checkpointed(
+        prep, pairs, settings, row0=inputs.get("row0", 0))
+    n = int(ckpt.work.ends[-1])
+    assert n > int((pairs.tile_count > 0).sum())      # a tile is split
+    assert torch.equal(ckpt.work.items[:n], cuda_rasterize.work_items(
+        ckpt.work, pairs.tile_count)[:n])
+
+
+def test_backward_kernel_wrapper_rejects_bad_checkpoints_cuda():
+    settings, prep, pairs = _case("gate", _cuda())
+    _, inputs = _gate_backward_inputs(prep.xy.device)
+    *_, ckpt = cuda_rasterize.composite_forward_checkpointed(prep, pairs,
+                                                             settings)
+    work = ckpt.work
+    before = dict(cuda_rasterize.LAUNCHES)
+    for bad in (ckpt._replace(state=ckpt.state[:, :5]),
+                ckpt._replace(state=ckpt.state.double()),
+                ckpt._replace(state=ckpt.state.cpu()),
+                ckpt._replace(work=work._replace(items=work.items[:-1])),
+                ckpt._replace(work=work._replace(ends=work.ends.long())),
+                ckpt._replace(work=work._replace(order=work.order[1:])),
+                ckpt._replace(work=work._replace(segment=100))):
+        with pytest.raises(ValueError):
+            cuda_rasterize.backward_rows(prep, pairs, settings, **inputs,
+                                         checkpoints=bad)
+    with pytest.raises(ValueError, match="segment"):
+        cuda_rasterize.composite_forward_checkpointed(prep, pairs, settings,
+                                                      segment=300)
+    assert cuda_rasterize.LAUNCHES == before
 
 
 @pytest.mark.parametrize("backward", [False, True])
