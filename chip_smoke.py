@@ -23,10 +23,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    tight_radius, pair_cull and a fitted kept_capacity; the launch counts
    are zeroed just before and read just after, and every image is held
    against the plain version's image of the same view;
-4. render times with CUDA events (medians after a warm-up), K1's time
-   (``kernel_ms``: calls back to back) and bound, and a ``walk`` line per
-   view (orbit and close): the tiles' pair counts, the walk of the CTAs,
-   ``deepest_tile_ms`` (K1 with every other tile's count set to 0);
+4. render times with CUDA events (medians after a warm-up), K1's bare
+   time (``bare_ms``) and its wrapper's (``time_ms``), K1's bound, and a
+   ``walk`` line per view (orbit and close): the tiles' pair counts, the
+   walk of the CTAs, ``deepest_tile_ms`` (K1 with every other tile's count
+   set to 0);
 5. K2 (with its epilogue, on K1's outputs, as the kernel gate runs it)
    against the stored JAX gradients of the gate, and against its plain
    version on the card on the gate, the high-opacity
@@ -40,24 +41,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    perturbed trained Lego (capacity 193,579 with the alive mask), in the
    trainer's camera order over 8 orbit views whose targets are the port's
    renders of the unperturbed Lego; the launch counts are zeroed just
-   before and read just after (one K1 and one K2 launch per step), K2 runs
-   from K1's checkpoints with more work items than tiles, no step
-   overflows, loss and gradients are finite, and the L1 loss on a held-out
-   orbit view falls;
+   before and read just after (one K1 and one K2 launch per step), with the
+   CTAs each launch started (``CTAS``); K2 runs from the checkpoints K1
+   returned (recorded as the render receives them) with more work items
+   than tiles, no step overflows, loss and gradients are finite, and the
+   L1 loss on a held-out orbit view falls;
 7. one step with K1 + K2 against the same step with the plain versions on
    the card, in the raw/L1 and the activated/SSIM configurations;
-8. training times with CUDA events, K2's time from checkpoints (and from
-   T = 1, and at other segment lengths), K1's with and without
-   checkpoints, K2's bound and the ``walk`` line of the step's view;
+8. training times with CUDA events, K2's bare time from checkpoints and
+   its wrapper's, K2's bound and the ``walk`` line of the step's view;
 9. K3 (the speed-of-light model's compositing kernel), forward and backward,
    against its plain version on the card at 2,500 tiles and 1, 2 and 5
    chunks: every tile row bit-identical, two runs bit-identical, one launch
    per call;
 10. the second main path, measurement: the speed-of-light model
-   (``gstpu_torch.sol_model.run``) on the card, with K3's launch counts
-   zeroed just before and read just after; every stage, the copy bandwidth,
-   ``sol_ms``, K3's CUDA-event times beside its bound and its plain
-   version's;
+   (``gstpu_torch.sol_model.run``) on the card, with K3's launch and CTA
+   counts zeroed just before and read just after; every stage, the copy
+   bandwidth, ``sol_ms``, K3's bare and wrapper times beside its bound and
+   its plain version's;
 11. the port's bench (``gstpu_torch.bench.main``): the kernel gate with
    ``preprocess_backend_parity``, the headline (100k Gaussians, 800x800,
    fitted capacities) with exactly one K1 and one K2 launch per timed
@@ -66,13 +67,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the same with the plain compositing; then the bench suite
    (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric.
 
-With ``--previous DIR`` (the parent commit's rasterize_fwd.cu,
-rasterize_bwd.cu and composite_common.cuh, for example from ``git show``
-into a directory that .gitignore lists) phase 1 builds them too, phases 2
-and 4 check that K1's outputs are bit-identical to the parent's on the
-gate, the close view and the orbit view, and phases 4 and 8 time the
-parent's K1 and K2 in turns with this tree's (``previous_ms``; null
-without the option).
+Times.  ``ms`` on the kernels line is the bare kernel (``bare_ms``: the
+launch that the wrapper makes, repeated 20 times back to back between two
+CUDA events, median of 5); ``wrapper_ms`` is one wrapper call per
+CUDA-event pair, median of 20 (how ``ms`` was timed up to the parent
+commit), with the wrapper's PyTorch ops (record table, work list,
+checkpoint buffer).
+
+With ``--previous DIR`` (the parent commit's ``gstpu_torch/csrc/``
+rasterize_fwd.cu, rasterize_bwd.cu, composite_common.cuh and
+``gstpu_torch/ops/cuda_rasterize.py``, for example from ``git show
+HEAD:<path>`` into a directory that .gitignore lists; see
+``PreviousKernels``) phase 1 builds the parent's kernels too, phases 2 and
+4 check that K1's outputs are bit-identical to the parent's on the gate,
+the close view and the orbit view, and phases 4 and 8 time the parent's
+kernels and wrappers in turns with this tree's (``previous_ms``,
+``previous_wrapper_ms``; null without the option), and the step's
+gradients (``trainer.loss_and_grads``) with either tree's compositing.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of gstpu.
@@ -81,13 +92,16 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import importlib.util
 import json
 import math
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -163,9 +177,12 @@ K3_BWD_REL_TOL = 1e-5
 # 2.7e-6 at most in the CPU tests' scenes
 # (tests/test_torch_backward.py::SEGMENT_TOL).
 K2_SEGMENT_ROW_TOL = 5e-5
-# K2's segment lengths timed at the step's view (the main path uses
-# cuda_rasterize.SEGMENT).
-SEGMENT_SWEEP = (256, 512, 1024)
+# The parent commit's files that --previous reads, by their paths in the
+# repo; PreviousKernels takes them from one directory.
+PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
+                "gstpu_torch/csrc/rasterize_bwd.cu",
+                "gstpu_torch/csrc/composite_common.cuh",
+                "gstpu_torch/ops/cuda_rasterize.py")
 
 
 def log(**kw) -> None:
@@ -376,96 +393,93 @@ def bits_equal(a, b) -> bool:
     return all(bool(torch.equal(_bits(x), _bits(y))) for x, y in zip(a, b))
 
 
-def k1_launcher(prep, pairs, settings, segment=None, index_order=False,
-                fn=None):
-    """A closure that launches K1 once on inputs prepared here (the table,
-    the outputs, the work list and checkpoint buffer), and its outputs, so
-    a timing of it is the kernel's own, without the wrapper's PyTorch ops.
-    ``fn``: another build's ``gstpu_rasterize_fwd`` (the same C interface);
-    ``index_order``: the tiles in index order in place of deepest first."""
-    fn = fn or cuda_rasterize._library("rasterize_fwd").gstpu_rasterize_fwd
-    dev = prep.xy.device
-    t = settings.band_tiles
-    table = cuda_rasterize._gaussian_table(prep)
-    outs = (torch.empty((t, 256, 3), device=dev),
-            torch.empty((t, 256), device=dev),
-            torch.empty((t, 256), device=dev),
-            torch.empty((t, 256), dtype=torch.int32, device=dev))
-    work = cuda_rasterize.build_work_list(
-        pairs.tile_count, pairs.gauss_id.shape[0],
-        segment or cuda_rasterize.WHOLE_TILE)
-    order = (torch.arange(t, dtype=torch.int32, device=dev) if index_order
-             else work.order)
-    state = (torch.empty((len(work.items), 6, 256), device=dev) if segment
-             else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+def bare_ms(lib: ctypes.CDLL, fname: str, call, calls: int = 20,
+            reps: int = 5) -> float:
+    """The time per launch of the kernel that ``call()``, a wrapper call,
+    launches through ``lib.<fname>``, without the wrapper's other work.
 
-    def launch():
-        err = fn(table.data_ptr(), pairs.gauss_id.data_ptr(),
-                 pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
-                 order.data_ptr(), t, settings.grid_x, 0,
-                 settings.row_stride, segment or 0,
-                 work.ends.data_ptr() if segment else None,
-                 work.items.data_ptr() if segment else None,
-                 state.data_ptr() if segment else None,
-                 *(x.data_ptr() for x in outs),
-                 cuda_build.device_index(dev), stream)
+    For the call, the launch function is replaced by one that (inside the
+    wrapper, whose tensors are then alive) launches the kernel once, then
+    ``calls`` times back to back between two CUDA events, ``reps`` times,
+    and once more for the wrapper's result; returns the median over
+    ``calls``.  Each kernel here writes the same outputs at every launch,
+    so this times any C interface the same way, the parent's too.  The
+    extra launches go to no launch count."""
+    fn = getattr(lib, fname)
+    if fn.argtypes is None:
+        raise RuntimeError(f"{fname} has no argument types yet: call its "
+                           "wrapper once before timing it")
+    times = []
+
+    def timed(*args):
+        err = fn(*args)
         if err:
-            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    return launch, outs
+            return err
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / calls)
+        return fn(*args)
+
+    setattr(lib, fname, timed)
+    try:
+        call()
+    finally:
+        setattr(lib, fname, fn)
+    if len(times) != reps:
+        raise RuntimeError(f"the call did not launch {fname} once")
+    return statistics.median(times)
 
 
-def k2_launcher(prep, pairs, settings, inputs, checkpoints=None, fn=None):
-    """A closure that launches K2 once on inputs prepared here (the table,
-    the per-pixel planes, the rows), from ``checkpoints`` or from T = 1,
-    and its rows; ``fn`` as for ``k1_launcher``."""
-    fn = fn or cuda_rasterize._library("rasterize_bwd").gstpu_rasterize_bwd
-    dev = prep.xy.device
-    seg = checkpoints is not None
-    work = (checkpoints.work if seg else cuda_rasterize.build_work_list(
-        pairs.tile_count, pairs.gauss_id.shape[0]))
-    pix_in = cuda_rasterize.pixel_inputs(**{k: inputs[k] for k in (
-        "color_pre_bg", "final_t", "dl_dpix", "bg", "depth_acc",
-        "dl_ddepth")})
-    table = cuda_rasterize._gaussian_table(prep)
-    rows = torch.zeros((pairs.gauss_id.shape[0] + 1, 10), device=dev)
-    ctas = len(work.items) if seg else settings.band_tiles
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch():
-        err = fn(table.data_ptr(), pairs.gauss_id.data_ptr(),
-                 pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
-                 work.order.data_ptr(), work.items.data_ptr() if seg else None,
-                 work.ends[-1:].data_ptr() if seg else None, ctas,
-                 work.segment,
-                 checkpoints.state.data_ptr() if seg else None,
-                 pix_in.data_ptr(), settings.grid_x, 0, settings.row_stride,
-                 rows.data_ptr(), cuda_build.device_index(dev), stream)
-        if err:
-            raise RuntimeError(f"K2 launch failed: CUDA error {err}")
-    return launch, rows
+def in_turns(previous, current) -> tuple[float, float, list]:
+    """Two measurements in turns (previous, current, current, previous);
+    returns the means of each and the four values."""
+    turns = [previous(), current(), current(), previous()]
+    return 0.5 * (turns[0] + turns[3]), 0.5 * (turns[1] + turns[2]), turns
 
 
-def time_in_turns(previous, current) -> tuple[float, float, list]:
-    """The parent's and this tree's time of the same call, in turns
-    (previous, current, current, previous), each by ``kernel_ms``; returns
-    the two means and the four times."""
-    turns = [kernel_ms(previous), kernel_ms(current), kernel_ms(current),
-             kernel_ms(previous)]
-    return (0.5 * (turns[0] + turns[3]), 0.5 * (turns[1] + turns[2]), turns)
+def load_wrapper(path: Path, libs: dict):
+    """The wrapper module at ``path`` (a ``cuda_rasterize.py``), loaded
+    under its own name with a ``cuda_build`` whose ``library(name)``
+    returns ``libs[name]``; its ``_library`` has set each library's
+    argument types, the module's own."""
+    spec = importlib.util.spec_from_file_location("previous_cuda_rasterize",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.cuda_build = SimpleNamespace(**{**vars(cuda_build),
+                                           "library": libs.__getitem__})
+    for name in libs:
+        module._library(name)
+    return module
 
 
 class PreviousKernels:
-    """The parent commit's K1 and K2, built from a directory that holds
-    their sources as the parent has them (``rasterize_fwd.cu``,
-    ``rasterize_bwd.cu`` and ``composite_common.cuh``, for example from
-    ``git show HEAD:gstpu_torch/csrc/<file>``) with this tree's flags, and
-    launched through the parent's C interface: one CTA per tile in index
-    order, no work list and no checkpoints.  For timing in turns with this
-    tree's kernels and for the bit-identity of K1's outputs; the launches
-    are not counted."""
+    """The parent commit's K1 and K2 behind the parent's own wrappers.
+
+    ``src`` holds the parent's files ``PARENT_FILES`` side by side under
+    their base names, for example from
+    ``git show HEAD:gstpu_torch/csrc/rasterize_fwd.cu > DIR/rasterize_fwd.cu``
+    and so on, in a directory that .gitignore lists.  The two kernels are
+    built with this tree's flags; the parent's wrapper module is loaded
+    under its own name with a ``cuda_build`` whose ``library`` returns
+    these builds (``load_wrapper``).  So the parent's wrapper sets and
+    passes the arguments of the parent's C interface itself, and nothing
+    here depends on that interface.  ``module`` is the loaded wrapper module
+    (``composite_forward``, ``backward_rows``, ``composite_backward``);
+    its launches go to its own ``LAUNCHES``, not to this tree's."""
 
     def __init__(self, src: Path):
+        files = [src / Path(f).name for f in PARENT_FILES]
+        missing = [str(f) for f in files if not f.is_file()]
+        if missing:
+            raise FileNotFoundError(f"--previous: no {missing}")
         out = cuda_build.BUILD_DIR / "previous"
         out.mkdir(parents=True, exist_ok=True)
         procs = {}
@@ -474,6 +488,7 @@ class PreviousKernels:
                    "-o", str(out / f"{name}.so"), str(src / f"{name}.cu")]
             procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)
+        self.libs = {}
         for name, proc in procs.items():
             build_log, _ = proc.communicate()
             log(previous_kernel=name, source=str(src / f"{name}.cu"),
@@ -481,83 +496,19 @@ class PreviousKernels:
             print(build_log.strip(), flush=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"building the parent's {name} failed")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        self.fwd = ctypes.CDLL(str(out / "rasterize_fwd.so"))
-        self.fwd.gstpu_rasterize_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32,
-            ptr]
-        self.bwd = ctypes.CDLL(str(out / "rasterize_bwd.so"))
-        self.bwd.gstpu_rasterize_bwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
-
-    @staticmethod
-    def _table(prep):
-        """The parent's (N, 10) records: this tree's without the padding."""
-        return cuda_rasterize._gaussian_table(prep)[:, :10].contiguous()
-
-    @staticmethod
-    def _raise(err: int, name: str) -> None:
-        if err != 0:
-            raise RuntimeError(f"the parent's {name} failed: CUDA error {err}")
-
-    def forward_launcher(self, prep, pairs, settings):
-        """A closure launching the parent's K1 once on prepared inputs, and
-        its outputs (as ``k1_launcher``)."""
-        t = settings.band_tiles
-        dev = prep.xy.device
-        table = self._table(prep)
-        out = (torch.empty((t, 256, 3), dtype=torch.float32, device=dev),
-               torch.empty((t, 256), dtype=torch.float32, device=dev),
-               torch.empty((t, 256), dtype=torch.float32, device=dev),
-               torch.empty((t, 256), dtype=torch.int32, device=dev))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-
-        def launch():
-            self._raise(self.fwd.gstpu_rasterize_fwd(
-                table.data_ptr(), pairs.gauss_id.data_ptr(),
-                pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(), t,
-                settings.grid_x, 0, settings.row_stride,
-                *(x.data_ptr() for x in out), cuda_build.device_index(dev),
-                stream), "K1")
-        return launch, out
-
-    def rows_launcher(self, prep, pairs, settings, color_pre_bg, final_t,
-                      dl_dpix, bg, depth_acc, dl_ddepth):
-        """A closure launching the parent's K2 once on prepared inputs, and
-        its rows (as ``k2_launcher``)."""
-        t = settings.band_tiles
-        dev = prep.xy.device
-        pix_in = cuda_rasterize.pixel_inputs(color_pre_bg, final_t, dl_dpix,
-                                             bg, depth_acc, dl_ddepth)
-        table = self._table(prep)
-        rows = torch.zeros((pairs.gauss_id.shape[0] + 1, 10),
-                           dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-
-        def launch():
-            self._raise(self.bwd.gstpu_rasterize_bwd(
-                table.data_ptr(), pairs.gauss_id.data_ptr(),
-                pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
-                pix_in.data_ptr(), t, settings.grid_x, 0,
-                settings.row_stride, rows.data_ptr(),
-                cuda_build.device_index(dev), stream), "K2")
-        return launch, rows
-
-    def forward(self, prep, pairs, settings):
-        launch, out = self.forward_launcher(prep, pairs, settings)
-        launch()
-        return out
+            self.libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+        self.module = load_wrapper(src / "cuda_rasterize.py", self.libs)
 
 
-def k1_checkpoint_checks(name: str, prep, pairs, settings,
-                         segment: int = cuda_rasterize.SEGMENT) -> dict:
+def k1_checkpoint_checks(name: str, prep, pairs, settings) -> dict:
     """K1 asked for checkpoints gives outputs bit-identical to K1 without;
     checkpoint k of every tile with a k-th segment is bit-equal to the final
     T, color and inverse depth of K1 run on the tile counts cut to k *
-    segment.  Raises otherwise."""
+    ``cuda_rasterize.SEGMENT``.  Raises otherwise."""
+    segment = cuda_rasterize.SEGMENT
     plain = cuda_rasterize.composite_forward(prep, pairs, settings)
     *outs, ckpt = cuda_rasterize.composite_forward_checkpointed(
-        prep, pairs, settings, segment=segment)
+        prep, pairs, settings)
     identical = bits_equal(outs, plain)
     n = int(ckpt.work.ends[-1])
     items = ckpt.work.items[:n]
@@ -616,25 +567,6 @@ def k2_segmented_checks(name: str, prep, pairs, settings, inputs) -> dict:
                        got, want, flip_tolerant=True)
 
 
-def kernel_ms(fn, calls: int = 20, reps: int = 5) -> float:
-    """A kernel wrapper's time per call: the median over ``reps`` of CUDA
-    events around ``calls`` calls back to back, over ``calls`` (so the
-    host's launches of one call overlap the device work of the last)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()``."""
     for _ in range(warmup):
@@ -685,8 +617,9 @@ def phase_build() -> None:
 
 def k1_vs_previous(name: str, previous, prep, pairs, settings) -> bool:
     """K1's four outputs bit-identical to the parent's K1; raises if not."""
+    parent = previous.module.composite_forward(prep, pairs, settings)
     same = bits_equal(cuda_rasterize.composite_forward(prep, pairs, settings),
-                      previous.forward(prep, pairs, settings))
+                      parent)
     log(check=f"{name}: K1 bit-identical to the parent's K1",
         bit_identical=same)
     if not same:
@@ -704,7 +637,7 @@ def phase_kernel_checks(params, size: int, device, previous=None) -> float:
     compare("gate: kernel vs stored JAX outputs",
             kernel_check.gate_forward(gate), gate.stored)
     kernel_vs_plain("gate", gate.prep, gate.pairs, gate.settings)
-    k1_checkpoint_checks("gate", gate.prep, gate.pairs, gate.settings, 512)
+    k1_checkpoint_checks("gate", gate.prep, gate.pairs, gate.settings)
     if previous is not None:
         k1_vs_previous("gate", previous, gate.prep, gate.pairs, gate.settings)
 
@@ -786,30 +719,47 @@ def phase_main_path(params, size: int, device, bg) -> int:
     return counts["rasterize_fwd"]
 
 
-def k1_times(name: str, prep, pairs, settings, previous):
-    """K1's time on these inputs: the kernel's own (``k1_launcher``), in
-    turns with the parent's K1 (whose outputs must be bit-identical) when
-    given, and the wrapper's; the walk line with ``deepest_tile_ms``;
-    returns (ms, the walk, the parent's ms or None)."""
-    current = k1_launcher(prep, pairs, settings)[0]
+def k1_times(name: str, prep, pairs, settings, previous) -> dict:
+    """K1 at these inputs: the bare kernel (``bare_ms``) and the wrapper
+    (``time_ms``), each in turns with the parent's (whose outputs must be
+    bit-identical) when given; the walk line with ``deepest_tile_ms``.
+    Returns the walk line."""
+    lib = cuda_rasterize._library("rasterize_fwd")
+
+    def bare(pairs=pairs):
+        return bare_ms(lib, "gstpu_rasterize_fwd",
+                       lambda: cuda_rasterize.composite_forward(
+                           prep, pairs, settings))
+
+    def wrapper():
+        return time_ms(lambda: cuda_rasterize.composite_forward(
+            prep, pairs, settings), 20)
+
     deep = only_deepest(pairs)
-    extra, previous_ms = {}, None
     if previous is not None:
         k1_vs_previous(name, previous, prep, pairs, settings)
-        previous_ms, ms, turns = time_in_turns(
-            previous.forward_launcher(prep, pairs, settings)[0], current)
+        plib = previous.libs["rasterize_fwd"]
+        p_forward = previous.module.composite_forward
+
+        def p_bare(pairs=pairs):
+            return bare_ms(plib, "gstpu_rasterize_fwd",
+                           lambda: p_forward(prep, pairs, settings))
+
+        previous_ms, ms, turns = in_turns(p_bare, bare)
+        previous_wrapper_ms, wrapper_ms, wrapper_turns = in_turns(
+            lambda: time_ms(lambda: p_forward(prep, pairs, settings), 20),
+            wrapper)
         extra = {"previous_ms": previous_ms, "turns_ms": turns,
-                 "previous_deepest_tile_ms": kernel_ms(
-                     previous.forward_launcher(prep, deep, settings)[0])}
+                 "previous_wrapper_ms": previous_wrapper_ms,
+                 "wrapper_turns_ms": wrapper_turns,
+                 "previous_deepest_tile_ms": p_bare(deep)}
     else:
-        ms = kernel_ms(current)
+        ms, wrapper_ms = bare(), wrapper()
+        extra = {"previous_ms": None, "previous_wrapper_ms": None}
     w = walk(prep, pairs, settings)
-    walk_line("K1", name, w, pairs, k1_ms=ms,
-              deepest_tile_ms=kernel_ms(k1_launcher(prep, deep, settings)[0]),
-              wrapper_ms=kernel_ms(lambda: cuda_rasterize.composite_forward(
-                  prep, pairs, settings)),
-              **k1_walk_stats(w, pairs), **extra)
-    return ms, w, previous_ms
+    return walk_line("K1", name, w, pairs, k1_ms=ms, wrapper_ms=wrapper_ms,
+                     deepest_tile_ms=bare(deep), **k1_walk_stats(w, pairs),
+                     **extra)
 
 
 def phase_timing(params, size: int, device, bg, previous=None) -> dict:
@@ -823,11 +773,10 @@ def phase_timing(params, size: int, device, bg, previous=None) -> dict:
     frame_ms = time_ms(lambda: render_view(params, cam, size, bg, device), 20)
     prep_bin_ms = time_ms(lambda: prep_and_pairs(params, cam, settings), 20)
     prep, pairs = prep_and_pairs(params, cam, settings)
-    k1_ms, w, previous_ms = k1_times("orbit theta=0", prep, pairs, settings,
-                                     previous)
+    line = k1_times("orbit theta=0", prep, pairs, settings, previous)
     plain_ms = time_ms(lambda: rasterize.composite_forward(
         prep, pairs, settings), 5, warmup=1)
-    steps = w.evaluated
+    steps = line["evaluated_steps"]
     t = settings.num_tiles
     pair_slots = int(pairs.tile_count.sum())
     nbytes = (n * RECORD_BYTES + pair_slots * 4 + t * 8
@@ -839,14 +788,17 @@ def phase_timing(params, size: int, device, bg, previous=None) -> dict:
                                      settings)
     k1_times("close, every tile occupied", c_prep, c_pairs, settings,
              previous)
+    k1_ms = line["k1_ms"]
     log(frame_ms=frame_ms, preprocess_binning_ms=prep_bin_ms, k1_ms=k1_ms,
         plain_ms=plain_ms, pairs=int(pairs.num_pairs), steps=steps,
         bytes=nbytes, flop_bound_ms=flop_ms, byte_bound_ms=byte_ms,
         bound_share=bound_ms / k1_ms,
         library_ms=None, library_note="no single PyTorch call computes "
         "this compositing")
-    return {"ms": k1_ms, "previous_ms": previous_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+    return {"ms": k1_ms, "previous_ms": line["previous_ms"],
+            "wrapper_ms": line["wrapper_ms"],
+            "previous_wrapper_ms": line["previous_wrapper_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
@@ -1041,40 +993,65 @@ class TrainRun:
                              self.held_out_target))
 
 
+@contextlib.contextmanager
+def recording_checkpoints():
+    """Within the block, ``cuda_rasterize.composite_forward_checkpointed``
+    (which ``rasterize.render`` looks up at each call) appends the
+    ``Checkpoints`` it returns to the list it yields, and runs unchanged."""
+    fn = cuda_rasterize.composite_forward_checkpointed
+    found = []
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        found.append(out[4])
+        return out
+
+    cuda_rasterize.composite_forward_checkpointed = recorded
+    try:
+        yield found
+    finally:
+        cuda_rasterize.composite_forward_checkpointed = fn
+
+
 def phase_train(run: TrainRun) -> dict:
-    """The main path: TRAIN_STEPS train steps; returns the launch counts."""
+    """The main path: TRAIN_STEPS train steps; returns the launch counts,
+    the CTAs launched and the work items run."""
     log(phase=6, gaussians=run.n_live, capacity=run.model.capacity,
         pair_capacity=run.settings.pair_capacity,
         kept_capacity=run.settings.kept_capacity, steps=TRAIN_STEPS,
         views=TRAIN_VIEWS)
     before = run.held_out_loss()
-    launches = cuda_rasterize.LAUNCHES
+    launches, ctas = cuda_rasterize.LAUNCHES, cuda_rasterize.CTAS
     torch.cuda.synchronize()
     for k in launches:
-        launches[k] = 0
-    losses, counts, views, items = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        i = run.next_view()
-        views.append(i)
-        was = dict(launches)
-        (run.model, run.adam, loss, grad_pos, cnt,
-         run.iteration) = train_step(run.settings, run.cfg, run.model,
-                                     run.adam, *run.view_args(i),
-                                     run.iteration)
-        if any(launches[k] - was[k] != 1 for k in launches):
-            raise RuntimeError(f"step {run.iteration}: launches {was} -> "
-                               f"{dict(launches)}, not one each")
-        items.append(cuda_rasterize.LAST_WORK_LIST["rasterize_bwd"])
-        losses.append(loss)
-        counts.append(cnt)
-        if not bool(torch.isfinite(grad_pos).all()):
-            raise RuntimeError(f"step {run.iteration}: non-finite position "
-                               "gradient")
+        launches[k] = ctas[k] = 0
+    losses, counts, views = [], [], []
+    with recording_checkpoints() as checkpoints:
+        for _ in range(TRAIN_STEPS):
+            i = run.next_view()
+            views.append(i)
+            was = dict(launches)
+            (run.model, run.adam, loss, grad_pos, cnt,
+             run.iteration) = train_step(run.settings, run.cfg, run.model,
+                                         run.adam, *run.view_args(i),
+                                         run.iteration)
+            if any(launches[k] - was[k] != 1 for k in launches):
+                raise RuntimeError(f"step {run.iteration}: launches {was} -> "
+                                   f"{dict(launches)}, not one each")
+            losses.append(loss)
+            counts.append(cnt)
+            if not bool(torch.isfinite(grad_pos).all()):
+                raise RuntimeError(f"step {run.iteration}: non-finite "
+                                   "position gradient")
     torch.cuda.synchronize()
-    got = dict(launches)
-    # K2's work: (tile, segment) items from K1's checkpoints, not whole tiles
-    segments = [w.segment for w in items]
-    real = [w.items[:int(w.ends[-1])] for w in items]
+    got, got_ctas = dict(launches), dict(ctas)
+    # K2's work: the (tile, segment) items that K1 wrote beside its
+    # checkpoints, not whole tiles
+    if len(checkpoints) != TRAIN_STEPS or None in checkpoints:
+        raise RuntimeError(f"{len(checkpoints)} checkpointed forwards in "
+                           f"{TRAIN_STEPS} steps")
+    segments = [c.work.segment for c in checkpoints]
+    real = [c.work.items[:int(c.work.ends[-1])] for c in checkpoints]
     work_items = sum(int(r.shape[0]) for r in real)
     item_tiles = sum(int(torch.unique(r[:, 0]).numel()) for r in real)
     split = [bool((r[:, 1] > 0).any()) for r in real]
@@ -1086,7 +1063,8 @@ def phase_train(run: TrainRun) -> dict:
                          for m in run.adam.m.values())
     finite_params = all(bool(torch.isfinite(x[alive]).all())
                         for x in run.model.param_dict().values())
-    log(path="train", launches=got, views=views, losses=losses.tolist(),
+    log(path="train", launches=got, ctas=got_ctas, views=views,
+        losses=losses.tolist(),
         max_pairs=int(counts[:, 0].max()), max_kept=int(counts[:, 1].max()),
         held_out_l1_before=before, held_out_l1_after=after,
         finite_moments=finite_moments, finite_params=finite_params,
@@ -1105,9 +1083,10 @@ def phase_train(run: TrainRun) -> dict:
         raise RuntimeError("non-finite loss, gradient or parameter")
     if not after < before:
         raise RuntimeError(f"held-out L1 did not fall: {before} -> {after}")
-    return {"launches": got,
-            "work_items": {"rasterize_fwd": TRAIN_STEPS * 4
-                           * run.settings.band_tiles,
+    # a K1 CTA is one work item (a 64-pixel strip of a tile); K2 launches
+    # a bound of CTAs, and those past its items return at once
+    return {"launches": got, "ctas": got_ctas,
+            "work_items": {"rasterize_fwd": got_ctas["rasterize_fwd"],
                            "rasterize_bwd": work_items}}
 
 
@@ -1146,8 +1125,9 @@ def phase_step_vs_plain(run: TrainRun) -> None:
 
 def phase_train_timing(run: TrainRun, previous=None) -> dict:
     """Medians of CUDA-event times of the main path's parts at its shapes
-    (the trained model, the next view of the camera order), K2 in turns
-    with the parent's K2 when given; K2's bound."""
+    (the trained model, the next view of the camera order); K2's bare and
+    wrapper times, and the step's compositing and gradients, in turns with
+    the parent's when given; K2's bound."""
     log(phase=8)
     i = run.next_view()
     view, proj, campos, tanx, tany, target = run.view_args(i)
@@ -1182,48 +1162,82 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
                   bg=run.bg, depth_acc=dacc,
                   dl_ddepth=torch.zeros_like(final_t))
 
-    def k2(pairs=pairs, checkpoints=ckpt):
-        """K2 launched alone, as the main path runs it: from checkpoints."""
-        return k2_launcher(prep, pairs, s, inputs, checkpoints)[0]
+    lib = cuda_rasterize._library("rasterize_bwd")
 
-    extra, previous_ms = {}, None
+    def bare(pairs=pairs, checkpoints=ckpt):
+        """K2 alone, as the main path runs it: from K1's checkpoints."""
+        return bare_ms(lib, "gstpu_rasterize_bwd",
+                       lambda: cuda_rasterize.backward_rows(
+                           prep, pairs, s, **inputs, checkpoints=checkpoints))
+
+    def wrapper():
+        return time_ms(lambda: cuda_rasterize.backward_rows(
+            prep, pairs, s, **inputs, checkpoints=ckpt), 20)
+
+    def step_compositing():
+        """K1 and K2 with their wrappers, as a training step runs them."""
+        *_, c = cuda_rasterize.composite_forward_checkpointed(prep, pairs, s)
+        return cuda_rasterize.backward_rows(prep, pairs, s, **inputs,
+                                            checkpoints=c)
+
+    args = (s, cfg, model) + run.view_args(i)
     deep = only_deepest(pairs)
     if previous is not None:
-        previous_ms, k2_ms, turns = time_in_turns(
-            previous.rows_launcher(prep, pairs, s, **inputs)[0], k2())
+        plib = previous.libs["rasterize_bwd"]
+        mod = previous.module
+
+        def p_bare(pairs=pairs):
+            return bare_ms(plib, "gstpu_rasterize_bwd",
+                           lambda: mod.backward_rows(prep, pairs, s,
+                                                     **inputs))
+
+        def p_step_compositing():
+            mod.composite_forward(prep, pairs, s)
+            return mod.backward_rows(prep, pairs, s, **inputs)
+
+        previous_ms, k2_ms, turns = in_turns(p_bare, bare)
+        previous_wrapper_ms, wrapper_ms, wrapper_turns = in_turns(
+            lambda: time_ms(lambda: mod.backward_rows(prep, pairs, s,
+                                                      **inputs), 20),
+            wrapper)
+        p_comp, comp, comp_turns = in_turns(
+            lambda: time_ms(p_step_compositing, 20),
+            lambda: time_ms(step_compositing, 20))
+        # the step's loss and gradients with either tree's compositing
+        p_grads, grads_ms, grads_turns = in_turns(
+            lambda: time_ms(lambda: loss_and_grads(
+                *args, _compositing=(mod.composite_forward,
+                                     mod.composite_backward)), 10),
+            lambda: time_ms(lambda: loss_and_grads(*args), 10))
         extra = {"previous_ms": previous_ms, "turns_ms": turns,
-                 "previous_deepest_tile_ms": kernel_ms(
-                     previous.rows_launcher(prep, deep, s, **inputs)[0])}
+                 "previous_wrapper_ms": previous_wrapper_ms,
+                 "wrapper_turns_ms": wrapper_turns,
+                 "step_compositing_ms": comp,
+                 "previous_step_compositing_ms": p_comp,
+                 "step_compositing_turns_ms": comp_turns,
+                 "loss_and_grads_ms": grads_ms,
+                 "previous_loss_and_grads_ms": p_grads,
+                 "loss_and_grads_turns_ms": grads_turns,
+                 "previous_deepest_tile_ms": p_bare(deep)}
     else:
-        k2_ms = kernel_ms(k2())
+        k2_ms, wrapper_ms = bare(), wrapper()
+        extra = {"previous_ms": None, "previous_wrapper_ms": None,
+                 "step_compositing_ms": time_ms(step_compositing, 20)}
     deep_ckpt = cuda_rasterize.composite_forward_checkpointed(prep, deep,
                                                               s)[4]
-    # K1 at this view, without and with checkpoints; K2 from T = 1 (one
-    # item per tile) and from checkpoints of other segment lengths; K2's
-    # wrapper (its PyTorch ops and the launch)
-    extra.update(
-        k1_ms=kernel_ms(k1_launcher(prep, pairs, s)[0]),
-        k1_checkpoints_ms=kernel_ms(k1_launcher(
-            prep, pairs, s, segment=cuda_rasterize.SEGMENT)[0]),
-        k2_whole_tiles_ms=kernel_ms(k2(checkpoints=None)),
-        k2_segment_ms={seg: kernel_ms(k2(
-            checkpoints=cuda_rasterize.composite_forward_checkpointed(
-                prep, pairs, s, segment=seg)[4])) for seg in SEGMENT_SWEEP},
-        wrapper_ms=kernel_ms(lambda: cuda_rasterize.backward_rows(
-            prep, pairs, s, **inputs, checkpoints=ckpt)))
     rows = cuda_rasterize.backward_rows(prep, pairs, s, **inputs,
                                         checkpoints=ckpt)
-    epilogue_ms = kernel_ms(lambda: rasterize.segment_sum_pair_rows(
-        rows, pairs, s))
+    epilogue_ms = time_ms(lambda: rasterize.segment_sum_pair_rows(
+        rows, pairs, s), 20)
     # the same function as the plain version: K2 and its epilogue
-    k2_epilogue_ms = kernel_ms(lambda: cuda_rasterize.composite_backward(
-        prep, pairs, s, **inputs, checkpoints=ckpt))
+    k2_epilogue_ms = time_ms(lambda: cuda_rasterize.composite_backward(
+        prep, pairs, s, **inputs, checkpoints=ckpt), 20)
     plain_ms = time_ms(lambda: rasterize.composite_backward(
         prep, pairs, s, **inputs), 3, warmup=1)
     w = walk(prep, pairs, s)
     steps, kept = w.evaluated, w.kept
     walk_line("K2", f"train step view {i}", w, pairs, k2_ms=k2_ms,
-              deepest_tile_ms=kernel_ms(k2(deep, deep_ckpt)),
+              wrapper_ms=wrapper_ms, deepest_tile_ms=bare(deep, deep_ckpt),
               **k2_walk_stats(w, pairs, cuda_rasterize.SEGMENT), **extra)
     n = prep.xy.shape[0]
     t = s.band_tiles
@@ -1243,13 +1257,15 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
         flop_bound_ms=flop_ms, byte_bound_ms=byte_ms,
         bound_share=bound_ms / k2_ms, library_ms=None,
         library_note="no single PyTorch call computes this backward")
-    return {"ms": k2_ms, "previous_ms": previous_ms,
+    return {"ms": k2_ms, "previous_ms": extra["previous_ms"],
+            "wrapper_ms": wrapper_ms,
+            "previous_wrapper_ms": extra["previous_wrapper_ms"],
             "ms_with_epilogue": k2_epilogue_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-            "times_cover": "ms and bound_ms: K2 alone (per-pair rows); "
-            "ms_with_epilogue and plain_ms: per-Gaussian gradients (K2 or "
-            "the plain walk, then the per-Gaussian sums)"}
+            "times_cover": "ms, wrapper_ms and bound_ms: K2 alone (per-pair "
+            "rows); ms_with_epilogue and plain_ms: per-Gaussian gradients "
+            "(K2 or the plain walk, then the per-Gaussian sums)"}
 
 
 def phase_k3_checks(device) -> dict:
@@ -1300,18 +1316,18 @@ def phase_k3_checks(device) -> dict:
 
 
 def phase_sol(device) -> tuple[dict, dict]:
-    """The speed-of-light model on the card, K3's launches counted; K3's
-    CUDA-event times beside its bound and its plain version's.  Returns the
-    model's dict and {form: record fields}."""
+    """The speed-of-light model on the card, K3's launches and CTAs
+    counted; K3's bare and wrapper times beside its bound and its plain
+    version's.  Returns the model's dict and {form: record fields}."""
     log(phase=10)
-    launches = sol_model.LAUNCHES
+    launches, ctas = sol_model.LAUNCHES, sol_model.CTAS
     torch.cuda.synchronize()
     for k in launches:
-        launches[k] = 0
+        launches[k] = ctas[k] = 0
     sol = sol_model.run(device)
     torch.cuda.synchronize()
-    counts = dict(launches)
-    log(path="sol model", launches=counts, **sol)
+    counts, got_ctas = dict(launches), dict(ctas)
+    log(path="sol model", launches=counts, ctas=got_ctas, **sol)
     if counts != {k: sol_model.TIMED_CALLS for k in counts}:
         raise RuntimeError(f"sol model launched K3 {counts}, not "
                            f"{sol_model.TIMED_CALLS} each")
@@ -1326,22 +1342,24 @@ def phase_sol(device) -> tuple[dict, dict]:
     for backward in (False, True):
         form = "sol_compositing_bwd" if backward else "sol_compositing_fwd"
         args = (feat, sol_model.N_CHUNKS, sol_model.TILES, backward)
-        ms = time_ms(lambda: sol_model.sol_compositing(*args), 50)
+        ms = bare_ms(sol_model._library(), "gstpu_sol_compositing",
+                     lambda: sol_model.sol_compositing(*args))
+        wrapper_ms = time_ms(lambda: sol_model.sol_compositing(*args), 50)
         plain_ms = time_ms(lambda: sol_model.sol_compositing_plain(*args), 5,
                            warmup=1)
         bound = sol_model.k3_bound(sol_model.TILES, sol_model.N_CHUNKS,
                                    backward, PEAK_FP32_FLOPS,
                                    PEAK_BYTES_PER_S)
         stage = "bwd" if backward else "fwd"
-        log(kernel=form, ms=ms,
+        log(kernel=form, ms=ms, wrapper_ms=wrapper_ms,
             sol_stage_ms=sol["stages"][f"{stage}_compositing_ms"],
             plain_ms=plain_ms, bound_share=bound["bound_ms"] / ms,
             card=sol["device"], library_ms=None,
             library_note="no single PyTorch call computes this", **bound)
-        # one CTA per tile in each launch
-        out[form] = {"launches": counts[form],
-                     "work_items": counts[form] * sol_model.TILES,
-                     "ms": ms, "plain_ms": plain_ms,
+        # one CTA, one work item, per tile
+        out[form] = {"launches": counts[form], "ctas": got_ctas[form],
+                     "work_items": got_ctas[form], "ms": ms,
+                     "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                      "bound_ms": bound["bound_ms"],
                      "bound_by": bound["bound_by"]}
     return sol, out
@@ -1413,9 +1431,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--previous", type=Path, default=None,
         help="a directory holding the parent commit's rasterize_fwd.cu, "
-        "rasterize_bwd.cu and composite_common.cuh: build them too, time "
-        "them in turns with this tree's K1 and K2 (previous_ms) and check "
-        "that K1's outputs are bit-identical")
+        "rasterize_bwd.cu, composite_common.cuh and cuda_rasterize.py: "
+        "build its kernels, time them and its wrappers in turns with this "
+        "tree's (previous_ms, previous_wrapper_ms) and check that K1's "
+        "outputs are bit-identical")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1432,7 +1451,8 @@ def main(argv=None) -> int:
     k2_errs = phase_k2_checks(params, SIZE, device)
     run = TrainRun(SIZE, device)
     main_path = phase_train(run)
-    launches, work_items = main_path["launches"], main_path["work_items"]
+    launches, ctas = main_path["launches"], main_path["ctas"]
+    work_items = main_path["work_items"]
     phase_step_vs_plain(run)
     k2_times = phase_train_timing(run, previous)
     del run
@@ -1444,12 +1464,14 @@ def main(argv=None) -> int:
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:160",
          "launches": launches["rasterize_fwd"],
+         "ctas": ctas["rasterize_fwd"],
          "work_items": work_items["rasterize_fwd"], "max_abs_err": k1_err,
          **k1_times, "library_ms": None},
         {"name": "rasterize_bwd (K2)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:442",
          "launches": launches["rasterize_bwd"],
+         "ctas": ctas["rasterize_bwd"],
          "work_items": work_items["rasterize_bwd"], **k2_errs,
          **k2_times, "library_ms": None}]
     for form in ("sol_compositing_fwd", "sol_compositing_bwd"):
@@ -1459,6 +1481,7 @@ def main(argv=None) -> int:
              "source": "gstpu_torch/csrc/sol_compositing.cu",
              "replaces": "scripts/sol_model.py:80", "max_abs_err": abs_err,
              "max_rel_err": rel_err, **k3_times[form], "previous_ms": None,
+             "previous_wrapper_ms": None,
              "previous_note": "K3 is the parent's kernel, unchanged",
              "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)

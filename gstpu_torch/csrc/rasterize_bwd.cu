@@ -55,10 +55,11 @@
 //   shared memory; after each batch one thread per (pair, field) adds the 8
 //   warp partials in order and writes the row.  A pair no lane of the warp
 //   kept is not reduced.
-// - Batches of 64 pairs: the warp partials take 20,480 B of shared memory.
-//   ptxas gives 62 registers, so 4 CTAs (32 warps) fit on an SM; a launch
-//   bound that asks for 5 or 6 (48 or 40 registers, spilling at 40) ran
-//   slower on the H100 (PERF.md).
+// - Batches of 64 pairs: the records and the warp partials take 23,552 B
+//   of shared memory.  ptxas gives 48 registers and no spills, so 5 CTAs
+//   (40 warps) fit on an SM; launch bounds asking for 4, 5 or 6 CTAs per SM
+//   (62, 48 and 40 registers, spilling at 40) ran slower on the H100
+//   (PERF.md, from scripts/torch_kernel_variants.py).
 //
 // Numerics as the forward kernel: no fast math, -fmad=false, expf.
 

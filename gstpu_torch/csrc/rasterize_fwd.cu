@@ -188,24 +188,29 @@ rasterize_fwd_kernel(const float* __restrict__ table,
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError().  `order`
-// holds the num_tiles tile indices in the order their CTAs start; `ckpt`
-// (with `segment`, `ends` and `items`) may be null for no checkpoints.
+// Launches the kernel on `stream`, writes the number of CTAs it launched
+// (one per 64-pixel strip of a tile) to the host int *ctas, and returns
+// cudaGetLastError().  `order` holds the num_tiles tile indices in the
+// order their CTAs start; `ckpt` (with `segment`, `ends` and `items`) may
+// be null for no checkpoints.
 int gstpu_rasterize_fwd(const float* table, const int* gauss_id,
                         const int* tile_start, const int* tile_count,
                         const int* order, int num_tiles, int grid_x, int row0,
                         int row_stride, int segment, const int* ends,
                         int* items, float* ckpt, float* color, float* dacc,
-                        float* final_t, int* n_contrib, int device,
+                        float* final_t, int* n_contrib, int* ctas, int device,
                         void* stream) {
+  *ctas = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles > 0) {
-    rasterize_fwd_kernel<<<num_tiles * kGroups, kGroupPixels, 0,
+    const int grid = num_tiles * kGroups;
+    rasterize_fwd_kernel<<<grid, kGroupPixels, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         table, gauss_id, tile_start, tile_count, order, grid_x, row0,
         row_stride, segment, ends, reinterpret_cast<int2*>(items), ckpt,
         color, dacc, final_t, n_contrib);
+    *ctas = grid;
   }
   return static_cast<int>(cudaGetLastError());
 }

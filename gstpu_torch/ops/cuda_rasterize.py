@@ -40,10 +40,10 @@ from gstpu_torch.ops import cuda_build, rasterize
 from gstpu_torch.ops.binning import Pairs
 from gstpu_torch.ops.preprocess import PreprocessOut
 
-# Kernel launches made by the wrappers (one per call on CUDA tensors).
+# Kernel launches made by the wrappers (one per call on CUDA tensors), and
+# the CTAs those launches started (K1 reports its grid; K2's is ``ctas``).
 LAUNCHES = {"rasterize_fwd": 0, "rasterize_bwd": 0}
-# The work list of the last K2 launch (for checks of the work order).
-LAST_WORK_LIST: dict = {}
+CTAS = {"rasterize_fwd": 0, "rasterize_bwd": 0}
 
 # Pairs per K2 work item when K1 checkpoints; a multiple of K1's batch
 # (256 ran faster than 512 and 1,024 on the H100, PERF.md).
@@ -131,7 +131,8 @@ def _library(name: str) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "rasterize_fwd":
         lib.gstpu_rasterize_fwd.argtypes = (
-            [ptr] * 5 + [i32] * 5 + [ptr] * 7 + [i32, ptr])
+            [ptr] * 5 + [i32] * 5 + [ptr] * 7 + [ctypes.POINTER(i32), i32,
+                                                ptr])
         lib.gstpu_rasterize_fwd.restype = i32
     else:
         lib.gstpu_rasterize_bwd.argtypes = (
@@ -212,8 +213,9 @@ def _check_checkpoints(ckpt: Checkpoints, num_tiles: int, pair_slots: int,
 
 
 def _forward(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
-             row0: int, segment: int | None):
-    """Launch K1; with a ``segment``, also write and return checkpoints."""
+             row0: int, checkpoints: bool):
+    """Launch K1; with ``checkpoints``, also write and return them every
+    ``SEGMENT`` pairs."""
     dev = _check_inputs(prep, pairs, settings)
     t = settings.band_tiles
     table = _gaussian_table(prep)
@@ -223,28 +225,28 @@ def _forward(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
     n_contrib = torch.empty((t, TILE_PIXELS), dtype=torch.int32, device=dev)
     if t == 0:
         return color, dacc, final_t, n_contrib, None
-    if segment is not None and (segment <= 0 or segment % FWD_BATCH):
-        raise ValueError(f"segment {segment}: expected a positive multiple "
-                         f"of {FWD_BATCH}")
     work = build_work_list(pairs.tile_count, pairs.gauss_id.shape[0],
-                           segment or WHOLE_TILE)
-    ckpt = None if segment is None else Checkpoints(work, torch.empty(
+                           SEGMENT if checkpoints else WHOLE_TILE)
+    ckpt = Checkpoints(work, torch.empty(
         (len(work.items), len(CHECKPOINT_FIELDS), TILE_PIXELS),
-        dtype=torch.float32, device=dev))
+        dtype=torch.float32, device=dev)) if checkpoints else None
     lib = _library("rasterize_fwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ctas = ctypes.c_int(0)
     err = lib.gstpu_rasterize_fwd(
         table.data_ptr(), pairs.gauss_id.data_ptr(),
         pairs.tile_start.data_ptr(), pairs.tile_count.data_ptr(),
         work.order.data_ptr(), t, settings.grid_x, int(row0),
-        settings.row_stride, work.segment if segment else 0,
-        work.ends.data_ptr() if segment else None,
-        work.items.data_ptr() if segment else None,
-        ckpt.state.data_ptr() if segment else None,
+        settings.row_stride, work.segment if checkpoints else 0,
+        work.ends.data_ptr() if checkpoints else None,
+        work.items.data_ptr() if checkpoints else None,
+        ckpt.state.data_ptr() if checkpoints else None,
         color.data_ptr(), dacc.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), cuda_build.device_index(dev), stream)
+        n_contrib.data_ptr(), ctypes.byref(ctas),
+        cuda_build.device_index(dev), stream)
     cuda_build.raise_on_error(lib, "rasterize_fwd", err)
     LAUNCHES["rasterize_fwd"] += 1
+    CTAS["rasterize_fwd"] += ctas.value
     return color, dacc, final_t, n_contrib, ckpt
 
 
@@ -257,19 +259,18 @@ def composite_forward(prep: PreprocessOut, pairs: Pairs,
     """
     if prep.xy.device.type == "cpu":
         return rasterize.composite_forward(prep, pairs, settings, row0=row0)
-    return _forward(prep, pairs, settings, row0, None)[:4]
+    return _forward(prep, pairs, settings, row0, False)[:4]
 
 
 def composite_forward_checkpointed(prep: PreprocessOut, pairs: Pairs,
-                                   settings: RenderSettings, row0: int = 0,
-                                   segment: int = SEGMENT):
+                                   settings: RenderSettings, row0: int = 0):
     """``composite_forward``'s four outputs and the ``Checkpoints`` that K1
-    wrote every ``segment`` pairs of each tile, for ``composite_backward``;
+    wrote every ``SEGMENT`` pairs of each tile, for ``composite_backward``;
     None in their place for CPU tensors (the plain version makes none)."""
     if prep.xy.device.type == "cpu":
         return rasterize.composite_forward(prep, pairs, settings,
                                            row0=row0) + (None,)
-    return _forward(prep, pairs, settings, row0, segment)
+    return _forward(prep, pairs, settings, row0, True)
 
 
 def pixel_inputs(color_pre_bg, final_t, dl_dpix, bg, depth_acc, dl_ddepth):
@@ -336,7 +337,7 @@ def backward_rows(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
         cuda_build.device_index(dev), stream)
     cuda_build.raise_on_error(lib, "rasterize_bwd", err)
     LAUNCHES["rasterize_bwd"] += 1
-    LAST_WORK_LIST["rasterize_bwd"] = work
+    CTAS["rasterize_bwd"] += ctas
     return rows
 
 

@@ -77,8 +77,10 @@ T_EPS = 1e-4
 FWD_OPS_PER_STEP = 27
 BWD_OPS_PER_STEP = FWD_OPS_PER_STEP - 2 + 50
 
-# Kernel launches made by ``sol_compositing`` (one per call on the card).
+# Kernel launches made by ``sol_compositing`` (one per call on the card),
+# and the CTAs those launches started (one per tile).
 LAUNCHES = {"sol_compositing_fwd": 0, "sol_compositing_bwd": 0}
+CTAS = {"sol_compositing_fwd": 0, "sol_compositing_bwd": 0}
 
 
 def feature_block(device) -> torch.Tensor:
@@ -186,7 +188,9 @@ def sol_compositing(feat: torch.Tensor, n_chunks: int, tiles: int,
                                     cuda_build.device_index(feat.device),
                                     stream)
     cuda_build.raise_on_error(lib, "sol_compositing", err)
-    LAUNCHES["sol_compositing_bwd" if backward else "sol_compositing_fwd"] += 1
+    form = "sol_compositing_bwd" if backward else "sol_compositing_fwd"
+    LAUNCHES[form] += 1
+    CTAS[form] += tiles
     return out
 
 

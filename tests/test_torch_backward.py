@@ -441,12 +441,12 @@ def test_epilogue_matches_index_add_of_rows(cull):
 def test_backward_wrapper_runs_plain_version_on_cpu():
     settings, prep_np, pairs_np, inputs = _scene(2, (0.2, 0.9))
     prep, pairs, ins = _torch_args(prep_np, pairs_np, inputs)
-    before = dict(cuda_rasterize.LAUNCHES)
+    before = dict(cuda_rasterize.LAUNCHES), dict(cuda_rasterize.CTAS)
     got = cuda_rasterize.composite_backward(prep, pairs, settings, **ins)
     want = TR.composite_backward(prep, pairs, settings, **ins)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert cuda_rasterize.LAUNCHES == before
+    assert (cuda_rasterize.LAUNCHES, cuda_rasterize.CTAS) == before
     with pytest.raises(ValueError, match="no compositing kernel"):
         cuda_rasterize.backward_rows(prep, pairs, settings, **ins)
     with pytest.raises(ValueError, match="no checkpoints"):

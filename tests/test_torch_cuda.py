@@ -189,11 +189,16 @@ def _gate_band(device):
     return settings, prep, pairs, inputs
 
 
-@pytest.mark.parametrize("segment", [256, 512])
-def test_forward_kernel_checkpoints_cuda(segment):
+def test_forward_kernel_checkpoints_cuda():
     settings, prep, pairs = _case("gate", _cuda())
-    res = k1_checkpoint_checks("gate", prep, pairs, settings, segment)
+    before = dict(cuda_rasterize.CTAS)
+    res = k1_checkpoint_checks("gate", prep, pairs, settings)
     assert res["ok"] and res["checkpoints_compared"] > 0
+    launched = cuda_rasterize.CTAS["rasterize_fwd"] - before["rasterize_fwd"]
+    # each launch (two, and one per checkpoint compared) reports its grid:
+    # one CTA per 64-pixel strip of every tile
+    assert launched > 0
+    assert launched % (settings.band_tiles * 256 // 64) == 0
 
 
 @pytest.mark.parametrize("case", ["gate", "band"])
@@ -206,11 +211,17 @@ def test_segmented_backward_kernel_matches_whole_tiles_and_plain_cuda(case):
         settings, prep, pairs, inputs = _gate_band(device)
     assert int(pairs.tile_count.max()) > cuda_rasterize.SEGMENT
     before = cuda_rasterize.LAUNCHES["rasterize_bwd"]
+    ctas = cuda_rasterize.CTAS["rasterize_bwd"]
     k2_segmented_checks(case, prep, pairs, settings, inputs)
     torch.cuda.synchronize()
     assert cuda_rasterize.LAUNCHES["rasterize_bwd"] == before + 3
-    work = cuda_rasterize.LAST_WORK_LIST["rasterize_bwd"]
-    assert work.segment == cuda_rasterize.WHOLE_TILE  # the last: T = 1
+    # two launches over the work list's bound of items, one from T = 1 over
+    # the tiles
+    bound = cuda_rasterize.work_capacity(settings.band_tiles,
+                                         pairs.gauss_id.shape[0],
+                                         cuda_rasterize.SEGMENT)
+    assert (cuda_rasterize.CTAS["rasterize_bwd"] - ctas
+            == 2 * bound + settings.band_tiles)
     *_, ckpt = cuda_rasterize.composite_forward_checkpointed(
         prep, pairs, settings, row0=inputs.get("row0", 0))
     n = int(ckpt.work.ends[-1])
@@ -236,9 +247,6 @@ def test_backward_kernel_wrapper_rejects_bad_checkpoints_cuda():
         with pytest.raises(ValueError):
             cuda_rasterize.backward_rows(prep, pairs, settings, **inputs,
                                          checkpoints=bad)
-    with pytest.raises(ValueError, match="segment"):
-        cuda_rasterize.composite_forward_checkpointed(prep, pairs, settings,
-                                                      segment=300)
     assert cuda_rasterize.LAUNCHES == before
 
 

@@ -1,0 +1,106 @@
+"""The measurement helpers of ``chip_smoke.py`` that need no card.
+
+- ``recording_checkpoints`` sees the checkpoints that the differentiable
+  render's forward returns (None on the CPU), and puts the wrapper back.
+- ``load_wrapper`` loads a wrapper module under its own name with the
+  libraries it is given, and that module sets their argument types itself:
+  how ``PreviousKernels`` launches the parent commit's kernels through the
+  parent's own C interface.  ``PreviousKernels`` names the parent files it
+  lacks before it builds anything.
+- ``bare_ms`` refuses a launch function without argument types and a call
+  that never launches it, and puts the function back.
+- ``in_turns`` measures previous, current, current, previous.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from gstpu_torch import scenes
+from gstpu_torch.config import RenderSettings
+from gstpu_torch.ops import cuda_rasterize, rasterize
+
+
+def test_recording_checkpoints_sees_each_render_and_restores():
+    rng = np.random.default_rng(4)
+    cam = scenes.example_camera(width=32, height=32)
+    pts, shs, scales, rotations, opacities = (
+        torch.tensor(x) for x in scenes.random_scene(rng, n=12))
+    settings = RenderSettings(width=32, height=32, pair_capacity=1 << 10)
+    wrapper = cuda_rasterize.composite_forward_checkpointed
+    with chip_smoke.recording_checkpoints() as found:
+        for _ in range(2):
+            image, _, _ = rasterize.render(
+                settings, cam["tan_fovx"], cam["tan_fovy"], 1.0, pts, scales,
+                rotations, opacities, shs,
+                *(torch.tensor(cam[k]) for k in ("view", "proj", "campos")),
+                torch.zeros(3))
+            assert image.shape == (32, 32, 3)
+    assert found == [None, None]        # the plain version makes none
+    assert cuda_rasterize.composite_forward_checkpointed is wrapper
+    with pytest.raises(KeyError):
+        with chip_smoke.recording_checkpoints():
+            raise KeyError("inside")
+    assert cuda_rasterize.composite_forward_checkpointed is wrapper
+
+
+def _fake_libs():
+    return {name: types.SimpleNamespace(**{f"gstpu_{name}":
+                                           types.SimpleNamespace()})
+            for name in ("rasterize_fwd", "rasterize_bwd")}
+
+
+def test_load_wrapper_uses_the_given_libraries_and_their_own_types():
+    libs = _fake_libs()
+    module = chip_smoke.load_wrapper(cuda_rasterize.__file__, libs)
+    assert module is not cuda_rasterize
+    assert module.LAUNCHES is not cuda_rasterize.LAUNCHES
+    assert module.cuda_build.library("rasterize_bwd") is libs["rasterize_bwd"]
+    assert module.cuda_build.device_index is not None
+    # the module's own interface: this tree's, as the file is this tree's
+    for lib in libs.values():
+        fn, = vars(lib).values()
+        assert fn.restype is not None
+    assert len(libs["rasterize_fwd"].gstpu_rasterize_fwd.argtypes) == 20
+    assert len(libs["rasterize_bwd"].gstpu_rasterize_bwd.argtypes) == 17
+
+
+def test_previous_kernels_names_the_missing_parent_files(tmp_path):
+    (tmp_path / "rasterize_fwd.cu").write_text("// the parent's K1\n")
+    with pytest.raises(FileNotFoundError) as err:
+        chip_smoke.PreviousKernels(tmp_path)
+    for name in ("rasterize_bwd.cu", "composite_common.cuh",
+                 "cuda_rasterize.py"):
+        assert name in str(err.value)
+    assert "rasterize_fwd.cu" not in str(err.value)
+
+
+def test_bare_ms_refuses_untyped_or_unlaunched_functions():
+    untyped = types.SimpleNamespace(argtypes=None)
+    lib = types.SimpleNamespace(gstpu_k=untyped)
+    with pytest.raises(RuntimeError, match="argument types"):
+        chip_smoke.bare_ms(lib, "gstpu_k", lambda: None)
+    typed = types.SimpleNamespace(argtypes=[int])
+    lib = types.SimpleNamespace(gstpu_k=typed)
+    with pytest.raises(RuntimeError, match="did not launch"):
+        chip_smoke.bare_ms(lib, "gstpu_k", lambda: None)
+    assert lib.gstpu_k is typed
+
+
+def test_in_turns_measures_previous_current_current_previous():
+    calls = []
+
+    def measure(name, value):
+        def f():
+            calls.append(name)
+            return value + len(calls)
+        return f
+
+    previous, current, turns = chip_smoke.in_turns(measure("p", 10.0),
+                                                   measure("c", 20.0))
+    assert calls == ["p", "c", "c", "p"]
+    assert turns == [11.0, 22.0, 23.0, 14.0]
+    assert (previous, current) == (12.5, 22.5)
