@@ -74,16 +74,19 @@ CUDA-event pair, median of 20 (how ``ms`` was timed up to the parent
 commit), with the wrapper's PyTorch ops (record table, work list,
 checkpoint buffer).
 
-With ``--previous DIR`` (the parent commit's ``gstpu_torch/csrc/``
-rasterize_fwd.cu, rasterize_bwd.cu, composite_common.cuh and
-``gstpu_torch/ops/cuda_rasterize.py``, for example from ``git show
-HEAD:<path>`` into a directory that .gitignore lists; see
-``PreviousKernels``) phase 1 builds the parent's kernels too, phases 2 and
-4 check that K1's outputs are bit-identical to the parent's on the gate,
-the close view and the orbit view, and phases 4 and 8 time the parent's
+With ``--previous DIR`` (the parent commit's ``PARENT_FILES``: the
+``gstpu_torch/csrc/`` sources rasterize_fwd.cu, rasterize_bwd.cu,
+composite_common.cuh and sol_compositing.cu and the wrapper modules
+``gstpu_torch/ops/cuda_rasterize.py`` and ``gstpu_torch/sol_model.py``,
+for example from ``git show HEAD:<path>`` into a directory that .gitignore
+lists; see ``PreviousKernels``) phase 1 builds the parent's kernels too,
+phases 2 and 4 check that K1's outputs are bit-identical to the parent's on
+the gate, the close view and the orbit view, phase 9 reports how far K3's
+outputs moved from the parent's, and phases 4, 8 and 10 time the parent's
 kernels and wrappers in turns with this tree's (``previous_ms``,
-``previous_wrapper_ms``; null without the option), and the step's
-gradients (``trainer.loss_and_grads``) with either tree's compositing.
+``previous_wrapper_ms``; null without the option), each on the parent's own
+main path (K2 from the parent K1's checkpoints), and the step's gradients
+(``trainer.loss_and_grads``) with either tree's compositing.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of gstpu.
@@ -95,6 +98,7 @@ import argparse
 import contextlib
 import ctypes
 import importlib.util
+import inspect
 import json
 import math
 import statistics
@@ -182,7 +186,13 @@ K2_SEGMENT_ROW_TOL = 5e-5
 PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
                 "gstpu_torch/csrc/rasterize_bwd.cu",
                 "gstpu_torch/csrc/composite_common.cuh",
-                "gstpu_torch/ops/cuda_rasterize.py")
+                "gstpu_torch/ops/cuda_rasterize.py",
+                "gstpu_torch/csrc/sol_compositing.cu",
+                "gstpu_torch/sol_model.py")
+# The parent's kernels that --previous builds, and the wrapper module that
+# launches each: {wrapper file: library names}
+PARENT_WRAPPERS = {"cuda_rasterize.py": ("rasterize_fwd", "rasterize_bwd"),
+                   "sol_model.py": ("sol_compositing",)}
 
 
 def log(**kw) -> None:
@@ -445,35 +455,43 @@ def in_turns(previous, current) -> tuple[float, float, list]:
 
 
 def load_wrapper(path: Path, libs: dict):
-    """The wrapper module at ``path`` (a ``cuda_rasterize.py``), loaded
-    under its own name with a ``cuda_build`` whose ``library(name)``
-    returns ``libs[name]``; its ``_library`` has set each library's
-    argument types, the module's own."""
-    spec = importlib.util.spec_from_file_location("previous_cuda_rasterize",
-                                                  path)
+    """The wrapper module at ``path`` (a ``cuda_rasterize.py`` or a
+    ``sol_model.py``), loaded under its own name with a ``cuda_build``
+    whose ``library(name)`` returns ``libs[name]``; its ``_library`` has set
+    each library's argument types, the module's own.  ``_library`` takes
+    the library's name, or nothing where the module wraps one library."""
+    spec = importlib.util.spec_from_file_location(
+        f"previous_{Path(path).stem}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     module.cuda_build = SimpleNamespace(**{**vars(cuda_build),
                                            "library": libs.__getitem__})
-    for name in libs:
-        module._library(name)
+    if inspect.signature(module._library).parameters:
+        for name in libs:
+            module._library(name)
+    else:
+        module._library()
     return module
 
 
 class PreviousKernels:
-    """The parent commit's K1 and K2 behind the parent's own wrappers.
+    """The parent commit's K1, K2 and K3 behind the parent's own wrappers.
 
     ``src`` holds the parent's files ``PARENT_FILES`` side by side under
     their base names, for example from
     ``git show HEAD:gstpu_torch/csrc/rasterize_fwd.cu > DIR/rasterize_fwd.cu``
-    and so on, in a directory that .gitignore lists.  The two kernels are
-    built with this tree's flags; the parent's wrapper module is loaded
-    under its own name with a ``cuda_build`` whose ``library`` returns
-    these builds (``load_wrapper``).  So the parent's wrapper sets and
-    passes the arguments of the parent's C interface itself, and nothing
-    here depends on that interface.  ``module`` is the loaded wrapper module
-    (``composite_forward``, ``backward_rows``, ``composite_backward``);
-    its launches go to its own ``LAUNCHES``, not to this tree's."""
+    and so on, in a directory that .gitignore lists.  The three kernels are
+    built with this tree's flags, one ``nvcc`` each, started together; the
+    parent's wrapper modules are loaded under their own names with a
+    ``cuda_build`` whose ``library`` returns these builds
+    (``load_wrapper``).  So the parent's wrappers set and pass the
+    arguments of the parent's C interfaces themselves, and nothing here
+    depends on those interfaces.  ``module`` is the loaded
+    ``cuda_rasterize`` (``composite_forward``, ``backward_rows``,
+    ``composite_backward``), ``sol`` the loaded ``sol_model``
+    (``sol_compositing``); their launches go to their own ``LAUNCHES``, not
+    to this tree's.  ``libs`` maps each kernel's name to its library,
+    ``paths`` to the library's file."""
 
     def __init__(self, src: Path):
         files = [src / Path(f).name for f in PARENT_FILES]
@@ -483,12 +501,15 @@ class PreviousKernels:
         out = cuda_build.BUILD_DIR / "previous"
         out.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for name in ("rasterize_fwd", "rasterize_bwd"):
-            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(src),
-                   "-o", str(out / f"{name}.so"), str(src / f"{name}.cu")]
-            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True)
-        self.libs = {}
+        for names in PARENT_WRAPPERS.values():
+            for name in names:
+                cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                       str(src), "-o", str(out / f"{name}.so"),
+                       str(src / f"{name}.cu")]
+                procs[name] = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+        self.libs, self.paths = {}, {}
         for name, proc in procs.items():
             build_log, _ = proc.communicate()
             log(previous_kernel=name, source=str(src / f"{name}.cu"),
@@ -496,8 +517,11 @@ class PreviousKernels:
             print(build_log.strip(), flush=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"building the parent's {name} failed")
-            self.libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-        self.module = load_wrapper(src / "cuda_rasterize.py", self.libs)
+            self.paths[name] = out / f"{name}.so"
+            self.libs[name] = ctypes.CDLL(str(self.paths[name]))
+        self.module, self.sol = (
+            load_wrapper(src / wrapper, {n: self.libs[n] for n in names})
+            for wrapper, names in PARENT_WRAPPERS.items())
 
 
 def k1_checkpoint_checks(name: str, prep, pairs, settings) -> dict:
@@ -1183,22 +1207,26 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
     args = (s, cfg, model) + run.view_args(i)
     deep = only_deepest(pairs)
     if previous is not None:
+        # the parent's main path: its K2 from its own K1's checkpoints
         plib = previous.libs["rasterize_bwd"]
         mod = previous.module
+        p_forward = mod.composite_forward_checkpointed
+        p_ckpt = p_forward(prep, pairs, s)[4]
 
-        def p_bare(pairs=pairs):
+        def p_bare(pairs=pairs, checkpoints=p_ckpt):
             return bare_ms(plib, "gstpu_rasterize_bwd",
-                           lambda: mod.backward_rows(prep, pairs, s,
-                                                     **inputs))
+                           lambda: mod.backward_rows(
+                               prep, pairs, s, **inputs,
+                               checkpoints=checkpoints))
 
         def p_step_compositing():
-            mod.composite_forward(prep, pairs, s)
-            return mod.backward_rows(prep, pairs, s, **inputs)
+            *_, c = p_forward(prep, pairs, s)
+            return mod.backward_rows(prep, pairs, s, **inputs, checkpoints=c)
 
         previous_ms, k2_ms, turns = in_turns(p_bare, bare)
         previous_wrapper_ms, wrapper_ms, wrapper_turns = in_turns(
-            lambda: time_ms(lambda: mod.backward_rows(prep, pairs, s,
-                                                      **inputs), 20),
+            lambda: time_ms(lambda: mod.backward_rows(
+                prep, pairs, s, **inputs, checkpoints=p_ckpt), 20),
             wrapper)
         p_comp, comp, comp_turns = in_turns(
             lambda: time_ms(p_step_compositing, 20),
@@ -1206,7 +1234,7 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
         # the step's loss and gradients with either tree's compositing
         p_grads, grads_ms, grads_turns = in_turns(
             lambda: time_ms(lambda: loss_and_grads(
-                *args, _compositing=(mod.composite_forward,
+                *args, _compositing=(p_forward,
                                      mod.composite_backward)), 10),
             lambda: time_ms(lambda: loss_and_grads(*args), 10))
         extra = {"previous_ms": previous_ms, "turns_ms": turns,
@@ -1218,7 +1246,8 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
                  "loss_and_grads_ms": grads_ms,
                  "previous_loss_and_grads_ms": p_grads,
                  "loss_and_grads_turns_ms": grads_turns,
-                 "previous_deepest_tile_ms": p_bare(deep)}
+                 "previous_deepest_tile_ms": p_bare(
+                     deep, p_forward(prep, deep, s)[4])}
     else:
         k2_ms, wrapper_ms = bare(), wrapper()
         extra = {"previous_ms": None, "previous_wrapper_ms": None,
@@ -1268,10 +1297,13 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
             "(K2 or the plain walk, then the per-Gaussian sums)"}
 
 
-def phase_k3_checks(device) -> dict:
+def phase_k3_checks(device, previous=None) -> dict:
     """K3 against its plain version on the card at the model's 2,500 tiles;
-    returns {form: (largest absolute error, largest error over its row's
-    largest magnitude)} over the chunk counts."""
+    beside it, when given, how far its outputs moved from the parent's K3's
+    (reported: this K3 takes t_ex from the exclusive product where the
+    parent divided, so neither form keeps the parent's bits).  Returns
+    {form: (largest absolute error, largest error over its row's largest
+    magnitude)} against the plain version over the chunk counts."""
     log(phase=9)
     feat = sol_model.feature_block(device)
     tiles = sol_model.TILES
@@ -1300,6 +1332,15 @@ def phase_k3_checks(device) -> dict:
                    "runs_bit_identical": bool(torch.equal(_bits(got),
                                                           _bits(again))),
                    "launches": launched}
+            if previous is not None:
+                parent = previous.sol.sol_compositing(feat, n_chunks, tiles,
+                                                      backward)
+                vs_parent = (got.double() - parent.double()).abs()
+                res["parent_bit_identical"] = bool(torch.equal(
+                    _bits(got), _bits(parent)))
+                res["parent_max_abs_diff"] = float(vs_parent.max())
+                res["parent_row_rel_diff"] = (vs_parent.amax(dim=(0, 2))
+                                              / row_scale).tolist()
             res["ok"] = bool(
                 res["tiles_bit_identical"] and res["runs_bit_identical"]
                 and launched == {k: 2 * (k == form) for k in launched}
@@ -1315,10 +1356,11 @@ def phase_k3_checks(device) -> dict:
     return errs
 
 
-def phase_sol(device) -> tuple[dict, dict]:
+def phase_sol(device, previous=None) -> tuple[dict, dict]:
     """The speed-of-light model on the card, K3's launches and CTAs
     counted; K3's bare and wrapper times beside its bound and its plain
-    version's.  Returns the model's dict and {form: record fields}."""
+    version's, each in turns with the parent's K3 when given.  Returns the
+    model's dict and {form: record fields}."""
     log(phase=10)
     launches, ctas = sol_model.LAUNCHES, sol_model.CTAS
     torch.cuda.synchronize()
@@ -1342,16 +1384,33 @@ def phase_sol(device) -> tuple[dict, dict]:
     for backward in (False, True):
         form = "sol_compositing_bwd" if backward else "sol_compositing_fwd"
         args = (feat, sol_model.N_CHUNKS, sol_model.TILES, backward)
-        ms = bare_ms(sol_model._library(), "gstpu_sol_compositing",
-                     lambda: sol_model.sol_compositing(*args))
-        wrapper_ms = time_ms(lambda: sol_model.sol_compositing(*args), 50)
+
+        def bare(wrapper=sol_model.sol_compositing, lib=sol_model._library()):
+            return bare_ms(lib, "gstpu_sol_compositing",
+                           lambda: wrapper(*args))
+
+        def wrapper(fn=sol_model.sol_compositing):
+            return time_ms(lambda: fn(*args), 50)
+
+        if previous is not None:
+            p_fn = previous.sol.sol_compositing
+            previous_ms, ms, turns = in_turns(
+                lambda: bare(p_fn, previous.libs["sol_compositing"]), bare)
+            previous_wrapper_ms, wrapper_ms, wrapper_turns = in_turns(
+                lambda: wrapper(p_fn), wrapper)
+            extra = {"previous_ms": previous_ms, "turns_ms": turns,
+                     "previous_wrapper_ms": previous_wrapper_ms,
+                     "wrapper_turns_ms": wrapper_turns}
+        else:
+            ms, wrapper_ms = bare(), wrapper()
+            extra = {"previous_ms": None, "previous_wrapper_ms": None}
         plain_ms = time_ms(lambda: sol_model.sol_compositing_plain(*args), 5,
                            warmup=1)
         bound = sol_model.k3_bound(sol_model.TILES, sol_model.N_CHUNKS,
                                    backward, PEAK_FP32_FLOPS,
                                    PEAK_BYTES_PER_S)
         stage = "bwd" if backward else "fwd"
-        log(kernel=form, ms=ms, wrapper_ms=wrapper_ms,
+        log(kernel=form, ms=ms, wrapper_ms=wrapper_ms, **extra,
             sol_stage_ms=sol["stages"][f"{stage}_compositing_ms"],
             plain_ms=plain_ms, bound_share=bound["bound_ms"] / ms,
             card=sol["device"], library_ms=None,
@@ -1359,7 +1418,7 @@ def phase_sol(device) -> tuple[dict, dict]:
         # one CTA, one work item, per tile
         out[form] = {"launches": counts[form], "ctas": got_ctas[form],
                      "work_items": got_ctas[form], "ms": ms,
-                     "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                     "wrapper_ms": wrapper_ms, **extra, "plain_ms": plain_ms,
                      "bound_ms": bound["bound_ms"],
                      "bound_by": bound["bound_by"]}
     return sol, out
@@ -1431,10 +1490,11 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--previous", type=Path, default=None,
         help="a directory holding the parent commit's rasterize_fwd.cu, "
-        "rasterize_bwd.cu, composite_common.cuh and cuda_rasterize.py: "
-        "build its kernels, time them and its wrappers in turns with this "
-        "tree's (previous_ms, previous_wrapper_ms) and check that K1's "
-        "outputs are bit-identical")
+        "rasterize_bwd.cu, composite_common.cuh, sol_compositing.cu, "
+        "cuda_rasterize.py and sol_model.py: build its kernels, time them "
+        "and its wrappers in turns with this tree's (previous_ms, "
+        "previous_wrapper_ms), check that K1's outputs are bit-identical and "
+        "report how far K3's moved")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1456,8 +1516,8 @@ def main(argv=None) -> int:
     phase_step_vs_plain(run)
     k2_times = phase_train_timing(run, previous)
     del run
-    k3_errs = phase_k3_checks(device)
-    sol, k3_times = phase_sol(device)
+    k3_errs = phase_k3_checks(device, previous)
+    sol, k3_times = phase_sol(device, previous)
     phase_bench(device, sol)
     kernels = [
         {"name": "rasterize_fwd (K1)", "route": "cuda",
@@ -1480,10 +1540,7 @@ def main(argv=None) -> int:
             {"name": f"{form} (K3)", "route": "cuda",
              "source": "gstpu_torch/csrc/sol_compositing.cu",
              "replaces": "scripts/sol_model.py:80", "max_abs_err": abs_err,
-             "max_rel_err": rel_err, **k3_times[form], "previous_ms": None,
-             "previous_wrapper_ms": None,
-             "previous_note": "K3 is the parent's kernel, unchanged",
-             "library_ms": None})
+             "max_rel_err": rel_err, **k3_times[form], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,12 @@
 // gstpu_torch/sol_model.py::sol_compositing_plain; the wrapper that builds
 // and launches this file is gstpu_torch/sol_model.py::sol_compositing.
 //
-// What it computes.  Every CTA ("tile") reads the same (16, 128) f32 feature
-// block, one column per lane (pair): x, y, conic a/b/c, opacity and four
+// What it computes.  Every tile reads the same (16, 128) f32 feature block,
+// one column per lane (pair): x, y, conic a/b/c, opacity and four
 // colour-like rows 6-9 (rows 10-15 are read by nobody).  Pixel p of the 256
 // sits at (p / 16, p / 32).  For n_chunks chunks c, with every feature
-// multiplied by (1 + c * 1e-7) in float32 (the loop-counter tie of the JAX
-// code, which keeps the body in the loop), the pixel walks the 128 lanes:
+// multiplied by s = (1 + c * 1e-7) in float32 (the loop-counter tie of the
+// JAX code, which keeps the body in the loop), the pixel walks the 128 lanes:
 //
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy;  g = exp(min(power, 0))
 //   alpha = min(0.99, op g), zeroed below 1/255
@@ -33,24 +33,66 @@
 //   terms of the compositing backward, row 1 that of w (px + py + px+1 +
 //   cdot).
 //
-// Design.  One 256-thread CTA per tile, one thread per pixel, the block in
-// shared memory (8 KB).  Each thread walks the lanes in order, so the
-// inclusive product (the TPU kernel's roll-doubling) and the prefix sum of u
-// (its upper-triangular product on the MXU) are running values in registers.
-// The backward's sums over the 256 pixels of each lane go without float
-// atomics, as in rasterize_bwd.cu: each warp sums its 32 pixels' two values
-// with a fixed shuffle tree, lane 0 writes the warp partials to shared
-// memory, and after the chunk thread (field, lane) adds the 8 partials in
-// order to its running sum.  Every tile computes the same bits, and two runs
-// give identical bits.
+// The JAX code takes t_ex = p_incl / (1 - alpha); this kernel takes the
+// same quantity from the exclusive product, t_ex = T * prod_{k < lane}
+// (1 - alpha_k), as K1 and K2 take T (kExclusiveT).  Kept and the carry
+// still come from p_incl, so only t_ex's rounding moves: on the sol model's
+// block the forward stays within 6e-8 of a kernel that divides.
 //
-// Bound on this card: the fp32 ALU.  A launch at the sol model's volumes
-// walks tiles x 256 x 128 x n_chunks (pixel, lane) steps of some tens of
-// operations each; it reads one 8 KB block and writes 2 floats per pixel
-// (forward) or per lane (backward) per tile.  This first version is the
-// simple one: the backward pays 10 shuffles per warp per lane.
+// What bounds it on this card: the issue rate.  A launch at the sol model's
+// volumes walks tiles x 256 x 128 x n_chunks (pixel, lane) steps; its bytes
+// (one 8 KB block in, 2 floats per pixel or lane per tile out) take
+// microseconds.  Under the shared flags (-fmad=false, no fast math, expf,
+// IEEE reciprocal) no multiply fuses with an add, so every counted
+// operation of a step is one instruction (expf is 8), and an SM
+// sub-partition issues one warp instruction per clock.  The bound
+// (sol_model.k3_bound) divides the operations by 67 TFLOP/s, a rate that
+// counts an FMA as two operations: a kernel that issued nothing but the
+// counted operations would reach 50% of it.  So the design cuts the
+// instructions per step that are not the step's own arithmetic.
 //
-// Numerics: no fast math, -fmad=false, expf.
+// Design.
+// - Lane work once per chunk.  The block is copied to shared memory once per
+//   CTA.  At the start of each chunk of each tile the CTA scales it by s
+//   into one 16-byte aligned record per lane (x y a b | c op f6 f6+f7+f8+f9
+//   | f7 f8 f9 0), so a step reads its lane with two broadcast 16-byte
+//   loads, not 7-10 scalar loads of the rows and as many multiplies per
+//   pixel.  The products are the same floats.
+// - kFwdPixPerThread pixels per thread in the forward (pixels
+//   kFwdPixPerThread t + k): each lane's loads serve them all, and their
+//   transmittance chains are independent, which gives the scheduler work
+//   between dependent instructions.  The backward keeps one pixel a thread
+//   (kBwdPixPerThread): its IEEE reciprocal compiles to a range check and a
+//   branch to a slow path, which splits the step into basic blocks that
+//   nvcc does not interleave, so there more warps hide latency better than
+//   more pixels a thread.  (An IEEE division of t_ex does the same to the
+//   forward: with it, 4 pixels a thread ran slower than 1.)  A CTA of
+//   256 / pixels-per-thread threads holds one tile.
+// - Backward sums over pixels without a shuffle tree per lane: each thread
+//   first adds its pixels' two values in order; after a batch of kLaneBatch
+//   lanes the warp reduces the 2 kLaneBatch values of each thread by a
+//   transposed butterfly (at each of the five levels every thread sends half
+//   of its values and keeps the other half, so the batch takes about one
+//   shuffle per value instead of five), which leaves each value summed over
+//   the warp's 32 threads in the order of a shuffle tree (distance 16 first);
+//   then the warps' partials go through shared memory and are added in warp
+//   order after the chunk.  No float atomics: every tile computes the same
+//   bits, and two runs give identical bits.
+// - One CTA per tile (kPersistent false), or a grid of as many CTAs as the
+//   card holds at once striding over the tiles (kPersistent true).  Every
+//   tile is walked in full: nothing is shared between tiles but the block.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, K3): ptxas
+// gives the forward 94 registers and 11,264 B of shared memory (20 CTAs of
+// one warp per SM, so the 2,500 tiles run in one wave), the backward 48
+// registers and 19,456 B (5 CTAs of 8 warps per SM), no spills;
+// cuobjdump counts 34.4 instructions per step in the forward's inner loop
+// and 104.4 in the backward's (a thread a pixel that reads the rows and
+// divides: 65 and 160).
+// scripts/torch_kernel_variants.py builds this file with one of the design
+// constants below changed at a time and times each variant.
+//
+// Numerics: no fast math, -fmad=false, expf, IEEE reciprocal.
 
 #include <cuda_runtime.h>
 
@@ -59,10 +101,32 @@
 namespace {
 
 constexpr int kChunk = 128;  // lanes (pairs) per chunk
-constexpr int kPix = 256;    // pixels per tile, threads per CTA
-constexpr int kRows = 16;    // feature rows of the block
-constexpr int kWarps = kPix / 32;
+constexpr int kPix = 256;    // pixels per tile
+constexpr int kLaneRows = 10;  // feature rows that the walk reads
 constexpr unsigned kFull = 0xffffffffu;
+
+// Design constants.
+constexpr int kFwdPixPerThread = 8;  // forward: pixels per thread, 1/2/4/8
+constexpr int kBwdPixPerThread = 1;  // backward: pixels per thread, 1/2/4/8
+constexpr int kLaneBatch = 8;        // backward: lanes per butterfly, <= 16
+constexpr bool kHoistLanes = true;   // lane records once per chunk
+constexpr bool kExclusiveT = true;   // t_ex = T * (product before the lane)
+constexpr bool kPersistent = false;  // a grid of resident CTAs over the tiles
+
+// The CTA of one form.
+template <bool kBackward>
+struct Shape {
+  static constexpr int kPixPerThread =
+      kBackward ? kBwdPixPerThread : kFwdPixPerThread;
+  static constexpr int kThreads = kPix / kPixPerThread;
+  static constexpr int kWarps = kThreads / 32;
+  static_assert(kThreads % 32 == 0 && kThreads * kPixPerThread == kPix,
+                "pixels per thread must be 1, 2, 4 or 8");
+};
+constexpr int kValues = 2 * kLaneBatch;  // a thread's values per butterfly
+static_assert(kChunk % kLaneBatch == 0 && kValues <= 32 &&
+                  (kValues & (kValues - 1)) == 0,
+              "kLaneBatch must be a power of two, at most 16");
 
 // The float32 roundings of the double constants of the JAX code.
 constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
@@ -70,135 +134,297 @@ constexpr float kAlphaMax = static_cast<float>(0.99);
 constexpr float kTEps = static_cast<float>(1e-4);
 constexpr float kTie = static_cast<float>(1e-7);
 
-template <bool kBackward>
-__global__ void __launch_bounds__(kPix)
-sol_compositing_kernel(const float* __restrict__ feat, int n_chunks,
-                       float* __restrict__ out) {
-  __shared__ float blk[kRows][kChunk];          // 8,192 B
-  __shared__ float part[kWarps][2][kChunk];     // 8,192 B, backward only
+// One lane's scaled features, as a step reads them.
+struct LaneRecord {
+  float4 q0;  // x, y, conic a, conic b
+  float4 q1;  // conic c, opacity, row 6, rows 6+7+8+9
+  float4 q2;  // rows 7, 8, 9, 0 (only the forward's dead accumulators)
+};
 
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  for (int i = p; i < kRows * kChunk; i += kPix) blk[i / kChunk][i % kChunk] = feat[i];
-  __syncthreads();
+struct Lane {
+  float x, y, ca, cb, cc, op, f6, f7, f8, f9, fsum;
+};
 
-  const float pix_x = static_cast<float>(p) * 0.0625f;
-  const float pix_y = pix_x * 0.5f;
-  float trans = 1.0f;
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;  // forward
-  float prefix_u = 0.0f;                                    // backward
-  float lane_acc = 0.0f;  // backward: field p / 128 of lane p % 128
+__device__ __forceinline__ Lane read_lane(const LaneRecord* rec,
+                                          const float (*blk)[kChunk], int j,
+                                          float s) {
+  Lane l;
+  if constexpr (kHoistLanes) {
+    const float4 q0 = rec[j].q0;
+    const float4 q1 = rec[j].q1;
+    const float4 q2 = rec[j].q2;
+    l = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q2.x, q2.y, q2.z, q1.w};
+  } else {
+    l.x = blk[0][j] * s;
+    l.y = blk[1][j] * s;
+    l.ca = blk[2][j] * s;
+    l.cb = blk[3][j] * s;
+    l.cc = blk[4][j] * s;
+    l.op = blk[5][j] * s;
+    l.f6 = blk[6][j] * s;
+    l.f7 = blk[7][j] * s;
+    l.f8 = blk[8][j] * s;
+    l.f9 = blk[9][j] * s;
+    l.fsum = l.f6 + l.f7 + l.f8 + l.f9;
+  }
+  return l;
+}
 
-  for (int c = 0; c < n_chunks; ++c) {
-    const float s = 1.0f + static_cast<float>(c) * kTie;
-    float prod = 1.0f;
-    float p_last = INFINITY;
-    float cum_u = 0.0f;
-    for (int j = 0; j < kChunk; ++j) {  // uniform: every thread walks all lanes
-      const float x = blk[0][j] * s;
-      const float y = blk[1][j] * s;
-      const float ca = blk[2][j] * s;
-      const float cb = blk[3][j] * s;
-      const float cc = blk[4][j] * s;
-      const float op = blk[5][j] * s;
-      const float f6 = blk[6][j] * s;
-      const float f7 = blk[7][j] * s;
-      const float f8 = blk[8][j] * s;
-      const float f9 = blk[9][j] * s;
-      const float dx = x - pix_x;
-      const float dy = y - pix_y;
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      const float g = expf(fminf(power, 0.0f));
-      float alpha = fminf(kAlphaMax, op * g);
-      alpha = alpha >= kAlphaMin ? alpha : 0.0f;
-      prod = prod * (1.0f - alpha);
-      const float p_incl = trans * prod;
-      const float t_ex = p_incl / (1.0f - alpha);
-      const bool kept = p_incl >= kTEps;
-      const float w = kept ? alpha * t_ex : 0.0f;
-      if (kept) p_last = fminf(p_last, p_incl);
-      if (!kBackward) {
-        acc0 = acc0 + w * f6;
-        acc1 = acc1 + w * f7;
-        acc2 = acc2 + w * f8;
-        acc3 = acc3 + w * f9;
-      } else {
-        const float cdot = (f6 + f7 + f8 + f9) * w;
-        const float u = w * cdot;
-        cum_u = cum_u + u;
-        const float inv_one_m = 1.0f / (1.0f - alpha);
-        const float dl_da =
-            kept ? cdot * t_ex - (prefix_u + cum_u) * inv_one_m -
-                       inv_one_m * 0.25f
-                 : 0.0f;
-        const float dl_dg = op * dl_da;
-        const float gdx = g * dx;
-        const float gdy = g * dy;
-        float r = dl_dg * (-gdx * ca - gdy * cb);
-        r = r + dl_dg * (-gdy * cc - gdx * cb);
-        r = r + -0.5f * gdx * dx * dl_dg;
-        r = r + -0.5f * gdx * dy * dl_dg;
-        r = r + -0.5f * gdy * dy * dl_dg;
-        r = r + (kept ? g : 0.0f) * dl_da;
-        float r2 = w * pix_x;
-        r2 = r2 + w * pix_y;
-        r2 = r2 + w * (pix_x + 1.0f);
-        r2 = r2 + w * cdot;
+// One (pixel, lane) step up to w, in the JAX code's order of operations.
+struct Step {
+  float dx, dy, g, alpha, one_m, p_incl, t_ex, w;
+  bool kept;
+};
+
+__device__ __forceinline__ Step step(const Lane& l, float pix_x, float pix_y,
+                                     float trans, float& prod,
+                                     float& p_last) {
+  Step o;
+  o.dx = l.x - pix_x;
+  o.dy = l.y - pix_y;
+  const float power =
+      -0.5f * (l.ca * o.dx * o.dx + l.cc * o.dy * o.dy) - l.cb * o.dx * o.dy;
+  o.g = expf(fminf(power, 0.0f));
+  float alpha = fminf(kAlphaMax, l.op * o.g);
+  o.alpha = alpha >= kAlphaMin ? alpha : 0.0f;
+  o.one_m = 1.0f - o.alpha;
+  const float before = prod;
+  prod = prod * o.one_m;
+  o.p_incl = trans * prod;
+  o.t_ex = kExclusiveT ? trans * before : o.p_incl / o.one_m;
+  o.kept = o.p_incl >= kTEps;
+  o.w = o.kept ? o.alpha * o.t_ex : 0.0f;
+  if (o.kept) p_last = fminf(p_last, o.p_incl);
+  return o;
+}
+
+// The transposed butterfly: the thread's kN values v[0..kN) are summed over
+// the warp, level by level from distance kOff down to 1; at a level with
+// more than one value left, the threads with the level's bit set keep the
+// upper half of their values and send the lower, the others the reverse.
+// Afterwards v[0] of lane t holds the warp's sum of value t >> (5 - log2 kN)
+// (any kN <= 32: the levels past log2 kN sum the last value whole).
+template <int kN, int kOff>
+__device__ __forceinline__ void butterfly(float* v, int lane) {
+  if constexpr (kOff > 0) {
+    if constexpr (kN > 1) {
+      constexpr int h = kN / 2;
+      const bool upper = (lane & kOff) != 0;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          r += __shfl_down_sync(kFull, r, off);
-          r2 += __shfl_down_sync(kFull, r2, off);
+      for (int i = 0; i < h; ++i) {
+        const float send = upper ? v[i] : v[i + h];
+        const float keep = upper ? v[i + h] : v[i];
+        v[i] = keep + __shfl_xor_sync(kFull, send, kOff);
+      }
+      butterfly<h, kOff / 2>(v, lane);
+    } else {
+      v[0] = v[0] + __shfl_xor_sync(kFull, v[0], kOff);
+      butterfly<1, kOff / 2>(v, lane);
+    }
+  }
+}
+
+template <bool kBackward>
+__global__ void __launch_bounds__(Shape<kBackward>::kThreads)
+sol_compositing_kernel(const float* __restrict__ feat, int tiles,
+                       int n_chunks, float* __restrict__ out) {
+  constexpr int kPixPerThread = Shape<kBackward>::kPixPerThread;
+  constexpr int kThreads = Shape<kBackward>::kThreads;
+  constexpr int kWarps = Shape<kBackward>::kWarps;
+  __shared__ float blk[kLaneRows][kChunk];                  // 5,120 B
+  __shared__ LaneRecord rec[kChunk];                        // 6,144 B
+  __shared__ float part[kBackward ? kWarps : 1][2][kChunk];  // backward
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  for (int i = t; i < kLaneRows * kChunk; i += kThreads) {
+    blk[i / kChunk][i % kChunk] = feat[i];
+  }
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float pix_x[kPixPerThread], pix_y[kPixPerThread], trans[kPixPerThread];
+    float acc0[kPixPerThread], acc1[kPixPerThread], acc2[kPixPerThread],
+        acc3[kPixPerThread];              // forward
+    float prefix_u[kPixPerThread];        // backward
+    float lane_acc[kPixPerThread];  // backward: (field, lane) t + i kThreads
+#pragma unroll
+    for (int k = 0; k < kPixPerThread; ++k) {
+      pix_x[k] = static_cast<float>(t * kPixPerThread + k) * 0.0625f;
+      pix_y[k] = pix_x[k] * 0.5f;
+      trans[k] = 1.0f;
+      acc0[k] = acc1[k] = acc2[k] = acc3[k] = 0.0f;
+      prefix_u[k] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPixPerThread; ++i) lane_acc[i] = 0.0f;
+
+    for (int c = 0; c < n_chunks; ++c) {
+      const float s = 1.0f + static_cast<float>(c) * kTie;
+      __syncthreads();  // the block is in; the last chunk's reads are done
+      if constexpr (kHoistLanes) {
+        for (int j = t; j < kChunk; j += kThreads) {
+          float v[kLaneRows];
+#pragma unroll
+          for (int r = 0; r < kLaneRows; ++r) v[r] = blk[r][j] * s;
+          rec[j].q0 = make_float4(v[0], v[1], v[2], v[3]);
+          rec[j].q1 = make_float4(v[4], v[5], v[6], v[6] + v[7] + v[8] + v[9]);
+          rec[j].q2 = make_float4(v[7], v[8], v[9], 0.0f);
         }
-        if (lane == 0) {
-          part[warp][0][j] = r;
-          part[warp][1][j] = r2;
+      }
+      __syncthreads();
+
+      float prod[kPixPerThread], p_last[kPixPerThread], cum_u[kPixPerThread];
+#pragma unroll
+      for (int k = 0; k < kPixPerThread; ++k) {
+        prod[k] = 1.0f;
+        p_last[k] = INFINITY;
+        cum_u[k] = 0.0f;
+      }
+      if constexpr (!kBackward) {
+#pragma unroll 2
+        for (int j = 0; j < kChunk; ++j) {  // every thread walks every lane
+          const Lane l = read_lane(rec, blk, j, s);
+#pragma unroll
+          for (int k = 0; k < kPixPerThread; ++k) {
+            const Step o =
+                step(l, pix_x[k], pix_y[k], trans[k], prod[k], p_last[k]);
+            acc0[k] = acc0[k] + o.w * l.f6;
+            acc1[k] = acc1[k] + o.w * l.f7;
+            acc2[k] = acc2[k] + o.w * l.f8;
+            acc3[k] = acc3[k] + o.w * l.f9;
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int jb = 0; jb < kChunk; jb += kLaneBatch) {
+          // v[jj]: the thread's sum of row 0 over its pixels for lane
+          // jb + jj; v[kLaneBatch + jj]: that of row 1
+          float v[kValues];
+#pragma unroll
+          for (int jj = 0; jj < kLaneBatch; ++jj) {
+            const Lane l = read_lane(rec, blk, jb + jj, s);
+#pragma unroll
+            for (int k = 0; k < kPixPerThread; ++k) {
+              const Step o =
+                  step(l, pix_x[k], pix_y[k], trans[k], prod[k], p_last[k]);
+              const float cdot = l.fsum * o.w;
+              const float u = o.w * cdot;
+              cum_u[k] = cum_u[k] + u;
+              const float inv_one_m = 1.0f / o.one_m;
+              const float dl_da =
+                  o.kept ? cdot * o.t_ex -
+                               (prefix_u[k] + cum_u[k]) * inv_one_m -
+                               inv_one_m * 0.25f
+                         : 0.0f;
+              const float dl_dg = l.op * dl_da;
+              const float gdx = o.g * o.dx;
+              const float gdy = o.g * o.dy;
+              float r = dl_dg * (-gdx * l.ca - gdy * l.cb);
+              r = r + dl_dg * (-gdy * l.cc - gdx * l.cb);
+              r = r + -0.5f * gdx * o.dx * dl_dg;
+              r = r + -0.5f * gdx * o.dy * dl_dg;
+              r = r + -0.5f * gdy * o.dy * dl_dg;
+              r = r + (o.kept ? o.g : 0.0f) * dl_da;
+              float r2 = o.w * pix_x[k];
+              r2 = r2 + o.w * pix_y[k];
+              r2 = r2 + o.w * (pix_x[k] + 1.0f);
+              r2 = r2 + o.w * cdot;
+              if (k == 0) {
+                v[jj] = r;
+                v[kLaneBatch + jj] = r2;
+              } else {
+                v[jj] = v[jj] + r;
+                v[kLaneBatch + jj] = v[kLaneBatch + jj] + r2;
+              }
+            }
+          }
+          butterfly<kValues, 16>(v, lane);
+          constexpr int kSpread = 32 / kValues;  // lanes holding each sum
+          if (lane % kSpread == 0) {
+            const int idx = lane / kSpread;
+            part[warp][idx / kLaneBatch][jb + idx % kLaneBatch] = v[0];
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPixPerThread; ++k) {
+        trans[k] = isfinite(p_last[k]) ? p_last[k] : trans[k];
+        prefix_u[k] = prefix_u[k] + cum_u[k];
+      }
+      if constexpr (kBackward) {
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kPixPerThread; ++i) {
+          const int f = (t + i * kThreads) / kChunk;  // field f of lane j
+          const int j = (t + i * kThreads) % kChunk;
+          float sum = part[0][f][j];
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w) sum += part[w][f][j];
+          lane_acc[i] = lane_acc[i] + sum;
         }
       }
     }
-    trans = isfinite(p_last) ? p_last : trans;
-    if (kBackward) {
-      prefix_u = prefix_u + cum_u;
-      __syncthreads();
-      const int f = p / kChunk;
-      const int j = p % kChunk;
-      float sum = part[0][f][j];
+
+    if constexpr (!kBackward) {
+      float* o = out + static_cast<size_t>(tile) * 2 * kPix;
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) sum += part[w][f][j];
-      lane_acc = lane_acc + sum;
-      __syncthreads();  // before the next chunk overwrites part
+      for (int k = 0; k < kPixPerThread; ++k) {
+        o[t * kPixPerThread + k] = acc0[k];
+        o[kPix + t * kPixPerThread + k] = trans[k];
+      }
+    } else {
+      float* o = out + static_cast<size_t>(tile) * 2 * kChunk;
+#pragma unroll
+      for (int i = 0; i < kPixPerThread; ++i) o[t + i * kThreads] = lane_acc[i];
     }
   }
+}
 
-  if (!kBackward) {
-    float* o = out + static_cast<size_t>(blockIdx.x) * 2 * kPix;
-    o[p] = acc0;
-    o[kPix + p] = trans;
-  } else {
-    out[static_cast<size_t>(blockIdx.x) * 2 * kChunk + p] = lane_acc;
-  }
+// CTAs that a launch over `tiles` tiles starts: one per tile, or (with
+// kPersistent) as many as the card holds at once, at most one per tile.
+template <bool kBackward>
+cudaError_t grid_size(int tiles, int device, int* grid) {
+  *grid = tiles;
+  if (!kPersistent || tiles == 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sol_compositing_kernel<kBackward>, Shape<kBackward>::kThreads,
+      0);
+  if (err != cudaSuccess) return err;
+  *grid = sms * per_sm < tiles ? sms * per_sm : tiles;
+  return cudaSuccess;
+}
+
+template <bool kBackward>
+cudaError_t launch(const float* feat, int tiles, int n_chunks, float* out,
+                   int device, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = grid_size<kBackward>(tiles, device, &grid);
+  if (err != cudaSuccess || grid == 0) return err;
+  sol_compositing_kernel<kBackward><<<grid, Shape<kBackward>::kThreads, 0,
+                                      stream>>>(feat, tiles, n_chunks, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one CTA per tile on `stream` and returns cudaGetLastError().
+// Launches K3 on `stream` and returns the CUDA error code (0 on success).
 // `feat` is the (16, 128) block; `out` is (tiles, 2, 256) forward or
 // (tiles, 2, 128) backward.
 int gstpu_sol_compositing(const float* feat, int tiles, int n_chunks,
                           int backward, float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tiles > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (backward) {
-      sol_compositing_kernel<true><<<tiles, kPix, 0, s>>>(feat, n_chunks, out);
-    } else {
-      sol_compositing_kernel<false><<<tiles, kPix, 0, s>>>(feat, n_chunks, out);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = backward ? launch<true>(feat, tiles, n_chunks, out, device, s)
+                 : launch<false>(feat, tiles, n_chunks, out, device, s);
+  return static_cast<int>(err);
 }
 
 const char* gstpu_cuda_error_string(int code) {

@@ -77,8 +77,9 @@ T_EPS = 1e-4
 FWD_OPS_PER_STEP = 27
 BWD_OPS_PER_STEP = FWD_OPS_PER_STEP - 2 + 50
 
-# Kernel launches made by ``sol_compositing`` (one per call on the card),
-# and the CTAs those launches started (one per tile).
+# Kernel launches made by ``sol_compositing`` (one per call on the card
+# with at least one tile), and the CTAs those launches started (one per
+# tile).
 LAUNCHES = {"sol_compositing_fwd": 0, "sol_compositing_bwd": 0}
 CTAS = {"sol_compositing_fwd": 0, "sol_compositing_bwd": 0}
 
@@ -181,6 +182,8 @@ def sol_compositing(feat: torch.Tensor, n_chunks: int, tiles: int,
         raise ValueError(f"tiles {tiles} and n_chunks {n_chunks} must be >= 0")
     out = torch.empty((tiles, 2, CHUNK if backward else PIX),
                       dtype=torch.float32, device=feat.device)
+    if tiles == 0:
+        return out
     lib = _library()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.gstpu_sol_compositing(feat.data_ptr(), tiles, n_chunks,

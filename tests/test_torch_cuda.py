@@ -12,7 +12,8 @@ magnitude, two runs bit-identical, flip-tolerant against the plain version),
 on the gate and on a row band; the wrappers' checks of work lists and
 checkpoint buffers; K3 within
 ``chip_smoke.K3_FWD_TOL`` (forward, absolute) and ``K3_BWD_REL_TOL``
-(backward, over each row's largest magnitude), every tile bit-identical.
+(backward, over each row's largest magnitude), every tile bit-identical,
+and no launch for 0 tiles.
 
 This file imports nothing of JAX, so it runs on a machine without it once
 ``tests/conftest.py`` (which imports jax) is left out:
@@ -270,6 +271,17 @@ def test_k3_matches_plain_cuda(n_chunks, backward):
         assert float(diff.max()) < K3_FWD_TOL
 
 
+@pytest.mark.parametrize("backward", [False, True])
+def test_k3_launches_nothing_for_no_tiles_cuda(backward):
+    feat = sol_model.feature_block(_cuda())
+    before = dict(sol_model.LAUNCHES), dict(sol_model.CTAS)
+    got = sol_model.sol_compositing(feat, 2, 0, backward)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 2, 128 if backward else 256)
+    assert got.is_cuda
+    assert (sol_model.LAUNCHES, sol_model.CTAS) == before
+
+
 def test_k3_wrapper_rejects_bad_blocks_cuda():
     feat = sol_model.feature_block(_cuda())
     before = dict(sol_model.LAUNCHES)
@@ -277,4 +289,7 @@ def test_k3_wrapper_rejects_bad_blocks_cuda():
         sol_model.sol_compositing(feat.double(), 2, 4, False)
     with pytest.raises(ValueError, match="block"):
         sol_model.sol_compositing(feat[:, :8], 2, 4, True)
+    for n_chunks, tiles in ((2, -1), (-1, 4)):
+        with pytest.raises(ValueError, match=">= 0"):
+            sol_model.sol_compositing(feat, n_chunks, tiles, False)
     assert sol_model.LAUNCHES == before

@@ -2,11 +2,13 @@
 
 - ``recording_checkpoints`` sees the checkpoints that the differentiable
   render's forward returns (None on the CPU), and puts the wrapper back.
-- ``load_wrapper`` loads a wrapper module under its own name with the
-  libraries it is given, and that module sets their argument types itself:
-  how ``PreviousKernels`` launches the parent commit's kernels through the
-  parent's own C interface.  ``PreviousKernels`` names the parent files it
-  lacks before it builds anything.
+- ``load_wrapper`` loads a wrapper module (``cuda_rasterize.py``, whose
+  ``_library`` takes the library's name, or ``sol_model.py``, whose
+  ``_library`` takes none) under its own name with the libraries it is
+  given, and that module sets their argument types itself: how
+  ``PreviousKernels`` launches the parent commit's kernels K1, K2 and K3
+  through the parent's own C interfaces.  ``PreviousKernels`` names the
+  parent files it lacks before it builds anything.
 - ``bare_ms`` refuses a launch function without argument types and a call
   that never launches it, and puts the function back.
 - ``in_turns`` measures previous, current, current, previous.
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 import chip_smoke
-from gstpu_torch import scenes
+from gstpu_torch import scenes, sol_model
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize, rasterize
 
@@ -68,14 +70,39 @@ def test_load_wrapper_uses_the_given_libraries_and_their_own_types():
     assert len(libs["rasterize_bwd"].gstpu_rasterize_bwd.argtypes) == 17
 
 
+def test_load_wrapper_takes_a_module_whose_library_takes_no_name():
+    libs = {"sol_compositing": types.SimpleNamespace(
+        gstpu_sol_compositing=types.SimpleNamespace())}
+    module = chip_smoke.load_wrapper(sol_model.__file__, libs)
+    assert module is not sol_model and module.__name__ == "previous_sol_model"
+    assert module.LAUNCHES is not sol_model.LAUNCHES
+    assert module._library() is libs["sol_compositing"]
+    assert len(libs["sol_compositing"].gstpu_sol_compositing.argtypes) == 7
+
+
 def test_previous_kernels_names_the_missing_parent_files(tmp_path):
     (tmp_path / "rasterize_fwd.cu").write_text("// the parent's K1\n")
     with pytest.raises(FileNotFoundError) as err:
         chip_smoke.PreviousKernels(tmp_path)
     for name in ("rasterize_bwd.cu", "composite_common.cuh",
-                 "cuda_rasterize.py"):
+                 "cuda_rasterize.py", "sol_compositing.cu", "sol_model.py"):
         assert name in str(err.value)
     assert "rasterize_fwd.cu" not in str(err.value)
+
+
+@pytest.mark.parametrize("missing", ["sol_compositing.cu", "sol_model.py"])
+def test_previous_kernels_needs_the_parent_k3(tmp_path, missing):
+    """K1's and K2's parent files alone are not enough: --previous also
+    builds and launches the parent's K3."""
+    for path in chip_smoke.PARENT_FILES:
+        name = path.rsplit("/", 1)[-1]
+        if name != missing:
+            (tmp_path / name).write_text("# a parent file\n")
+    with pytest.raises(FileNotFoundError, match=missing):
+        chip_smoke.PreviousKernels(tmp_path)
+    assert {n for names in chip_smoke.PARENT_WRAPPERS.values()
+            for n in names} == {"rasterize_fwd", "rasterize_bwd",
+                                "sol_compositing"}
 
 
 def test_bare_ms_refuses_untyped_or_unlaunched_functions():

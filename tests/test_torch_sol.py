@@ -8,16 +8,21 @@
   1e-6 of each output row's largest magnitude (the JAX kernel takes the
   product by roll-doubling and the prefix sum by a triangular matrix product,
   the plain version by ``cumprod`` and ``cumsum``).
-- ``kernel_model``, a NumPy model of K3's arithmetic (lanes walked in order,
-  the six gradient terms summed per pixel, warp shuffle trees, the 8 warp
-  partials in order), against the plain version, within the limits that the
-  card check holds the kernel to (``chip_smoke.K3_FWD_TOL``,
-  ``K3_BWD_REL_TOL``).
+- ``kernel_model``, a NumPy model of K3's arithmetic in the order of
+  ``csrc/sol_compositing.cu`` with the design constants read from it (lanes
+  walked in order, t_ex from the exclusive product or by division, the six
+  gradient terms summed per pixel, then over each thread's pixels, the
+  warp's butterfly, the warp partials in order), against the plain version,
+  within the limits that the card check holds the kernel to
+  (``chip_smoke.K3_FWD_TOL``, ``K3_BWD_REL_TOL``); and ``tile_walk``, the
+  kernel's walk of a grid of CTAs over the tiles, at tile counts that no
+  grid divides and at 0 tiles.
 - The sort stage exactly equal to ``jax.lax.sort`` (two keys, stable), the
   scans to ``jnp.cumsum`` and ``lax.cummax``, dtypes included.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +33,7 @@ from jax.experimental import pallas as pl
 
 from chip_smoke import K3_BWD_REL_TOL, K3_FWD_TOL
 from gstpu_torch import sol_model
+from gstpu_torch.ops import cuda_build
 from scripts import sol_model as jax_sol
 
 FWD_TOL = 2e-6
@@ -75,18 +81,37 @@ def test_plain_k3_matches_jax_interpret(jax_k3, n_chunks, tiles, backward):
         assert np.abs(got - want).max() < FWD_TOL
 
 
-def _warp_sum(v):
-    """Lane 0 of ``s += __shfl_down_sync(s, off)`` for off 16..1, per warp
-    of the 256 values."""
-    v = v.reshape(8, 32).copy()
+def k3_constants() -> dict:
+    """The design constants of ``csrc/sol_compositing.cu``: {name: int or
+    bool}."""
+    text = (cuda_build.CSRC / "sol_compositing.cu").read_text()
+    return {name: value == "true" if value in ("true", "false")
+            else int(value)
+            for name, value in re.findall(
+                r"constexpr (?:int|bool) (k\w+) = (\d+|true|false);", text)}
+
+
+def _warp_sum(v, pix_per_thread: int):
+    """The backward's sum of the 256 pixels' values per warp: each thread's
+    ``pix_per_thread`` pixels (pixels pix_per_thread * t + k) in order, then
+    the 32 threads of the warp in the butterfly's tree (distance 16 first,
+    as ``s += __shfl_down_sync(s, off)`` for off 16..1 sums into lane 0)."""
+    per_thread = v.reshape(-1, pix_per_thread)
+    s = per_thread[:, 0].copy()
+    for k in range(1, pix_per_thread):
+        s = s + per_thread[:, k]
+    s = s.reshape(-1, 32)
     for off in (16, 8, 4, 2, 1):
-        v[:, :32 - off] = v[:, :32 - off] + v[:, off:]
-    return v[:, 0]
+        s[:, :32 - off] = s[:, :32 - off] + s[:, off:]
+    return s[:, 0]
 
 
 def kernel_model(feat: np.ndarray, n_chunks: int, backward: bool):
     """K3's arithmetic for one tile in float32 NumPy: (2, 256) forward,
     (2, 128) backward, as ``csrc/sol_compositing.cu`` orders it."""
+    consts = k3_constants()
+    pix_per_thread = consts["kBwdPixPerThread"]
+    warps = 256 // pix_per_thread // 32
     f32 = np.float32
     blk = feat[0]
     pix_x = np.arange(256).astype(f32) * f32(0.0625)
@@ -100,7 +125,7 @@ def kernel_model(feat: np.ndarray, n_chunks: int, backward: bool):
         prod = np.ones(256, f32)
         p_last = np.full(256, np.inf, f32)
         cum_u = np.zeros(256, f32)
-        part = np.zeros((8, 2, 128), f32)
+        part = np.zeros((warps, 2, 128), f32)
         for j in range(128):
             x, y, ca, cb, cc, op, f6, f7, f8, f9 = (blk[k, j] * s
                                                     for k in range(10))
@@ -110,9 +135,13 @@ def kernel_model(feat: np.ndarray, n_chunks: int, backward: bool):
             g = np.exp(np.minimum(power, f32(0.0)))
             alpha = np.minimum(f32(0.99), op * g)
             alpha = np.where(alpha >= f32(1.0 / 255.0), alpha, f32(0.0))
+            before = prod
             prod = prod * (f32(1.0) - alpha)
             p_incl = trans * prod
-            t_ex = p_incl / (f32(1.0) - alpha)
+            if consts["kExclusiveT"]:
+                t_ex = trans * before
+            else:
+                t_ex = p_incl / (f32(1.0) - alpha)
             kept = p_incl >= f32(1e-4)
             w = np.where(kept, alpha * t_ex, f32(0.0))
             p_last = np.where(kept, np.minimum(p_last, p_incl), p_last)
@@ -138,13 +167,13 @@ def kernel_model(feat: np.ndarray, n_chunks: int, backward: bool):
             r2 = r2 + w * pix_y
             r2 = r2 + w * (pix_x + f32(1.0))
             r2 = r2 + w * cdot
-            part[:, 0, j] = _warp_sum(r)
-            part[:, 1, j] = _warp_sum(r2)
+            part[:, 0, j] = _warp_sum(r, pix_per_thread)
+            part[:, 1, j] = _warp_sum(r2, pix_per_thread)
         trans = np.where(np.isfinite(p_last), p_last, trans)
         if backward:
             prefix_u = prefix_u + cum_u
             total = part[0]
-            for w_ in range(1, 8):
+            for w_ in range(1, warps):
                 total = total + part[w_]
             lane_acc = lane_acc + total
     return lane_acc if backward else np.stack([acc0, trans])
@@ -163,6 +192,46 @@ def test_kernel_model_matches_plain(n_chunks, backward):
         assert np.abs(got - want).max() < K3_FWD_TOL
 
 
+def tile_walk(tiles: int, grid: int) -> list:
+    """The tiles that each CTA of a grid of ``grid`` walks, as the kernel's
+    ``for (tile = blockIdx.x; tile < tiles; tile += gridDim.x)``."""
+    return [list(range(b, tiles, grid)) for b in range(grid)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("tiles,grid", [(3, 2), (5, 3), (3, 3), (0, 0)])
+def test_kernel_model_over_a_grid_matches_plain(tiles, grid, backward):
+    """Each tile computed by the CTA that walks it, once; the launch grid
+    (a CTA per tile, or fewer CTAs striding over the tiles) need not divide
+    the tile count, and 0 tiles launch nothing."""
+    feat = sol_model.feature_block("cpu").numpy()
+    walked = tile_walk(tiles, grid)
+    assert sorted(t for cta in walked for t in cta) == list(range(tiles))
+    want = _plain(2, tiles, backward)
+    got = np.zeros(want.shape, np.float32)
+    for cta in walked:
+        for t in cta:
+            got[t] = kernel_model(feat, 2, backward)
+    assert want.shape == (tiles, 2, 128 if backward else 256)
+    if tiles == 0:
+        return
+    if backward:
+        assert (_row_rel(got, want) < K3_BWD_REL_TOL).all()
+    else:
+        assert np.abs(got - want).max() < K3_FWD_TOL
+
+
+def test_k3_constants_are_read_from_the_source():
+    consts = k3_constants()
+    assert set(consts) >= {"kFwdPixPerThread", "kBwdPixPerThread",
+                           "kLaneBatch", "kHoistLanes", "kExclusiveT",
+                           "kPersistent"}
+    for name in ("kFwdPixPerThread", "kBwdPixPerThread"):
+        assert consts[name] in (1, 2, 4, 8)
+    assert 2 * consts["kLaneBatch"] in (2, 4, 8, 16, 32)
+    assert isinstance(consts["kExclusiveT"], bool)
+
+
 def test_k3_wrapper_runs_the_plain_version_on_the_cpu():
     feat = sol_model.feature_block("cpu")
     before = dict(sol_model.LAUNCHES)
@@ -171,6 +240,16 @@ def test_k3_wrapper_runs_the_plain_version_on_the_cpu():
         assert torch.equal(got, sol_model.sol_compositing_plain(feat, 2, 3,
                                                                 backward))
         assert torch.equal(got, got[:1].expand_as(got))   # identical tiles
+        empty = sol_model.sol_compositing(feat, 2, 0, backward)
+        assert empty.shape == (0, 2, 128 if backward else 256)
+    assert sol_model.LAUNCHES == before
+
+
+def test_k3_wrapper_refuses_a_device_without_a_kernel():
+    feat = sol_model.feature_block("cpu").to("meta")
+    before = dict(sol_model.LAUNCHES)
+    with pytest.raises(ValueError, match="no K3 kernel for device meta"):
+        sol_model.sol_compositing(feat, 2, 3, False)
     assert sol_model.LAUNCHES == before
 
 
