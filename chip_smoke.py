@@ -65,7 +65,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    iteration (counts zeroed before, read after), the trained-scene
    companion, ``vs_sol`` from phase 10's model; one headline iteration
    against the same with the plain compositing; then the bench suite
-   (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric.
+   (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric;
+12. the third main path, training a scene: a COLMAP capture of the Lego
+   (16 orbit views at 800x800 rendered by the port from the trained Lego,
+   its 129,053 positions as the points, under build/lego_colmap), read back
+   by the port's loader within 1e-5; then ``gstpu_torch.train.main`` on it
+   (the default GSConfig, 60 steps, densify events at 20 and 40, holdout 8:
+   14 train and 2 val/test views) with the launch counts zeroed just before
+   and read just after: one K2 launch per step run (replays included), at
+   least one K1 launch per step and per eval render; a densify event that
+   changes the topology, every overflow replayed, finite losses whose last
+   10 average below the first 10, eval and test PSNR, the PLY, cameras,
+   losses, metrics and states written; the median step time (CUDA events),
+   each densify event's time and the eval renders'; then a resume from the
+   state at 30 that starts at 31 and writes the rest of loss.txt.
 
 Times.  ``ms`` on the kernels line is the bare kernel (``bare_ms``: the
 launch that the wrapper makes, repeated 20 times back to back between two
@@ -101,9 +114,12 @@ import importlib.util
 import inspect
 import json
 import math
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -112,8 +128,12 @@ import numpy as np
 import torch
 
 from gstpu_torch import bench, bench_suite, convert, scenes, sol_model
+from gstpu_torch import train as train_cli
+from gstpu_torch import trainer as trainer_mod
 from gstpu_torch.config import GSConfig, RenderSettings
-from gstpu_torch.models.gaussians import GaussianModel, grow_capacity
+from gstpu_torch.data.colmap import ColmapDataset
+from gstpu_torch.models.gaussians import (SH_C0, GaussianModel,
+                                          activate_params, grow_capacity)
 from gstpu_torch.ops import cuda_build, cuda_rasterize, kernel_check, rasterize
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss, l1_pixel_gradients
@@ -122,6 +142,7 @@ from gstpu_torch.optim import adam_step, init_adam_state, schedule_lrs
 from gstpu_torch.render import default_pair_capacity, render_gaussians
 from gstpu_torch.trainer import (loss_and_grads, round_capacity,
                                  train_settings, train_step)
+from gstpu_torch.utils.image import imwrite
 
 SIZE = 800
 THETAS = (0.0, 0.5 * math.pi, math.pi, 1.5 * math.pi)
@@ -181,6 +202,23 @@ K3_BWD_REL_TOL = 1e-5
 # 2.7e-6 at most in the CPU tests' scenes
 # (tests/test_torch_backward.py::SEGMENT_TOL).
 K2_SEGMENT_ROW_TOL = 5e-5
+# Phase 12, the trainer: a COLMAP capture of TRAINER_VIEWS orbit views of
+# the trained Lego (the port's renders) under CAPTURE_DIR, which .gitignore
+# lists; the default GSConfig (raw/L1, init from the capture's points)
+# for TRAINER_STEPS steps with densify events at 20 and 40, checkpoints at
+# 0, 30 and 59, two views per mid-training eval; then a resume from the
+# state at TRAINER_RESUME.  The cameras read back within CAPTURE_TOL.  The
+# step of TRAINER_CHECK_STEP, the first after the densify event at 20 (a
+# compacted model at the refitted capacities), and the first eval render
+# after it are held against the plain compositing.
+TRAINER_VIEWS = 16
+TRAINER_STEPS = 60
+TRAINER_RESUME = 30
+TRAINER_CHECK_STEP = 21
+TRAINER_FLAGS = ("--densify-from-iter", "10", "--densification-interval",
+                 "20", "--save-interval", "30", "--eval-views", "2")
+CAPTURE_DIR = Path(__file__).resolve().parent / "build" / "lego_colmap"
+CAPTURE_TOL = 1e-5
 # The parent commit's files that --previous reads, by their paths in the
 # repo; PreviousKernels takes them from one directory.
 PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
@@ -628,7 +666,9 @@ def render_cull_view(params, cam, settings, bg):
 
 def phase_build() -> None:
     log(phase=1, torch=torch.__version__, cuda=torch.version.cuda,
-        python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
+        python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
+        image_modules={m: importlib.util.find_spec(m) is not None
+                       for m in ("imageio", "PIL", "matplotlib")})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1124,6 +1164,28 @@ def activated(model: GaussianModel) -> GaussianModel:
                          opacities=torch.log(op / (1.0 - op)))
 
 
+def step_vs_plain(name: str, settings, cfg, model, view, proj, campos,
+                  tan_fovx, tan_fovy, target, **depth) -> dict:
+    """One step's loss and gradients with K1 + K2 against the plain
+    versions on the card, from the same model and view; raises outside
+    LOSS_REL_TOL or check_grads' flip-tolerant thresholds."""
+    args = (settings, cfg, model, view, proj, campos, tan_fovx, tan_fovy,
+            target)
+    loss_k, grads_k, aux = loss_and_grads(*args, **depth)
+    loss_p, grads_p, _ = loss_and_grads(*args, **depth,
+                                        _compositing=PLAIN_COMPOSITING)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(check=f"{name}: loss kernels vs plain", loss=float(loss_k),
+        loss_plain=float(loss_p), rel=rel, pairs=int(aux.num_pairs),
+        kept_pairs=int(aux.num_kept), pair_capacity=settings.pair_capacity,
+        kept_capacity=settings.kept_capacity, capacity=model.capacity,
+        n_alive=int(model.n_alive))
+    if not rel < LOSS_REL_TOL:
+        raise RuntimeError(f"{name}: loss differs by {rel} relative")
+    return check_grads(f"{name}: gradients kernels vs plain", grads_k,
+                       grads_p, flip_tolerant=True)
+
+
 def phase_step_vs_plain(run: TrainRun) -> None:
     """One step's loss and gradients with K1 + K2 against the plain
     versions on the card, from the same model, raw/L1 and activated/SSIM."""
@@ -1134,17 +1196,8 @@ def phase_step_vs_plain(run: TrainRun) -> None:
             ("activated, lambda_dssim 0.2",
              run.cfg.replace(parameterization="activated", lambda_dssim=0.2),
              activated(run.model))):
-        args = (run.settings, cfg, model) + run.view_args(i)
-        loss_k, grads_k, _ = loss_and_grads(*args)
-        loss_p, grads_p, _ = loss_and_grads(
-            *args, _compositing=PLAIN_COMPOSITING)
-        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-        log(check=f"step {name}: loss kernels vs plain", view=i,
-            loss=float(loss_k), loss_plain=float(loss_p), rel=rel)
-        if not rel < LOSS_REL_TOL:
-            raise RuntimeError(f"step {name}: loss differs by {rel} relative")
-        check_grads(f"step {name}: gradients kernels vs plain", grads_k,
-                    grads_p, flip_tolerant=True)
+        step_vs_plain(f"step {name}, view {i}", run.settings, cfg, model,
+                      *run.view_args(i))
 
 
 def phase_train_timing(run: TrainRun, previous=None) -> dict:
@@ -1286,8 +1339,8 @@ def phase_train_timing(run: TrainRun, previous=None) -> dict:
         flop_bound_ms=flop_ms, byte_bound_ms=byte_ms,
         bound_share=bound_ms / k2_ms, library_ms=None,
         library_note="no single PyTorch call computes this backward")
-    return {"ms": k2_ms, "previous_ms": extra["previous_ms"],
-            "wrapper_ms": wrapper_ms,
+    return {"train_step_ms": train_ms, "ms": k2_ms,
+            "previous_ms": extra["previous_ms"], "wrapper_ms": wrapper_ms,
             "previous_wrapper_ms": extra["previous_wrapper_ms"],
             "ms_with_epilogue": k2_epilogue_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1485,6 +1538,339 @@ def phase_bench(device, sol: dict) -> None:
             raise RuntimeError(f"bench suite: {rec}")
 
 
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) unit quaternion of a rotation matrix (COLMAP's
+    ``rotmat2qvec``: the eigenvector of the largest eigenvalue)."""
+    (r00, r01, r02), (r10, r11, r12), (r20, r21, r22) = R
+    K = np.array([[r00 - r11 - r22, 0.0, 0.0, 0.0],
+                  [r01 + r10, r11 - r00 - r22, 0.0, 0.0],
+                  [r02 + r20, r12 + r21, r22 - r00 - r11, 0.0],
+                  [r21 - r12, r02 - r20, r10 - r01, r00 + r11 + r22]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_capture(root: Path, cams, images, xyz, rgb) -> None:
+    """A COLMAP capture of square views: one PINHOLE camera (the views'
+    shared focal), ``images.bin`` with each camera dict's world-to-camera
+    pose and no 2D points, ``points3D.bin`` with ``xyz`` and the uint8
+    colours ``rgb`` and empty tracks, and ``images/r_XX.png``."""
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True, exist_ok=True)
+    (root / "images").mkdir(exist_ok=True)
+    size = cams[0]["width"]
+    focal = size / (2.0 * cams[0]["tan_fovx"])
+    with open(sparse / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, size, size))  # id 1, PINHOLE
+        f.write(struct.pack("<4d", focal, focal, size / 2, size / 2))
+    with open(sparse / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for i, (cam, img) in enumerate(zip(cams, images)):
+            w2c = np.asarray(cam["world_to_camera"], np.float64).T
+            name = f"r_{i:02d}.png"
+            f.write(struct.pack("<i4d3di", i + 1, *rotmat_to_qvec(w2c[:3, :3]),
+                                *w2c[:3, 3], 1))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
+            imwrite(root / "images" / name, img)
+    record = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                       ("error", "<f8"), ("track", "<u8")])
+    points = np.zeros(len(xyz), record)
+    points["id"] = np.arange(1, len(xyz) + 1)
+    points["xyz"], points["rgb"] = xyz, rgb
+    with open(sparse / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)) + points.tobytes())
+
+
+def capture_readback_error(root: Path, cams) -> float:
+    """Largest difference between the camera dicts and the port's
+    ``ColmapDataset`` reading of the capture (every view, no holdout);
+    raises if the sizes differ."""
+    data = ColmapDataset(str(root), "train", holdout=0)
+    if len(data) != len(cams):
+        raise RuntimeError(f"{len(data)} views read back, {len(cams)} written")
+    err = 0.0
+    for got, want in zip(data.cameras, cams):
+        if (got["width"], got["height"]) != (want["width"], want["height"]):
+            raise RuntimeError("a view was read back at another size")
+        for k in ("world_to_camera", "full_proj_matrix", "camera_center",
+                  "tan_fovx", "tan_fovy"):
+            err = max(err, float(np.max(np.abs(
+                np.asarray(got[k], np.float64)
+                - np.asarray(want[k], np.float64)))))
+    return err
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside compare a kernel with its plain version: K1's and
+    K2's launch and CTA counts are put back on leaving."""
+    counts = cuda_rasterize.LAUNCHES, cuda_rasterize.CTAS
+    saved = [dict(c) for c in counts]
+    try:
+        yield
+    finally:
+        for c, was in zip(counts, saved):
+            c.update(was)
+
+
+def eval_render_vs_plain(name: str, trainer, settings, model, view, proj,
+                         campos, tan_fovx=None, tan_fovy=None) -> dict:
+    """The compositing of one ``Trainer._render_eval`` call (K1 without
+    checkpoints, as ``render_forward`` runs it) against the plain version,
+    at the call's settings and model."""
+    cfg = trainer.config
+    p = activate_params(model.param_dict(), cfg.parameterization)
+    bg = torch.tensor(cfg.background_color, dtype=torch.float32,
+                      device=trainer.device)
+    tx = trainer.tan_fovx if tan_fovx is None else tan_fovx
+    ty = trainer.tan_fovy if tan_fovy is None else tan_fovy
+    outs = []
+    for fwd in (cuda_rasterize.composite_forward,
+                rasterize.composite_forward):
+        with torch.no_grad():
+            (_, _, aux), (_, _, color, dacc, *_) = rasterize._render_fwd(
+                settings, tx, ty, cfg.scale_modifier, p["positions"],
+                p["scales"], p["rotations"], p["opacities"], p["shs"], view,
+                proj, campos, bg, model.alive, 0, fwd)
+        outs.append((color, dacc, aux.final_t, aux.n_contrib))
+    log(check=f"{name}: settings", pairs=int(aux.num_pairs),
+        kept_pairs=int(aux.num_kept), pair_capacity=settings.pair_capacity,
+        kept_capacity=settings.kept_capacity, capacity=model.capacity,
+        n_alive=int(model.n_alive))
+    return compare(f"{name}: K1 vs plain on the card", *outs)
+
+
+class TrainerProbe:
+    """Within ``attached()``, every ``trainer.train_step`` call is recorded
+    with its iteration and CUDA events around it, every
+    ``Trainer._render_full`` call (an eval or debug render) with CUDA events,
+    and every densify event (``Trainer._maybe_densify`` at an iteration of
+    the densify schedule) with the host clock between two synchronizes.  The
+    functions are put back on leaving.
+
+    With ``check_step``, the first step of that iteration is held against
+    the plain compositing at its settings and model before it runs
+    (``step_vs_plain``), and so is the first eval render once training has
+    passed it (``eval_render_vs_plain``), with their launches uncounted;
+    ``checks`` holds their errors and ``check_s`` their host time."""
+
+    def __init__(self, check_step: int | None = None):
+        self.steps, self.step_events, self.renders = [], [], []
+        self.densify_s = []
+        self.check_step, self.checks, self.check_s = check_step, {}, 0.0
+
+    def _check(self, key: str, fn, *args, **kwargs) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with uncounted():
+            self.checks[key] = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.check_s += time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def attached(self):
+        step, full = trainer_mod.train_step, trainer_mod.Trainer._render_full
+        maybe = trainer_mod.Trainer._maybe_densify
+        render_eval = trainer_mod.Trainer._render_eval
+        last_eval = []
+
+        def timed(record, fn, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            record.append((start, end))
+            return out
+
+        def train_step(*args, **kwargs):
+            it = args[10]  # the iteration
+            if it == self.check_step and "step" not in self.checks:
+                settings, cfg, model, _, *view = args[:10]
+                self._check("step", step_vs_plain, f"trainer step {it}",
+                            settings, cfg, model, *view, **kwargs)
+            self.steps.append(it)
+            return timed(self.step_events, step, *args, **kwargs)
+
+        def render_eval_args(trainer, *args):
+            last_eval[:] = args
+            return render_eval(trainer, *args)
+
+        def render_full(trainer, *args, **kwargs):
+            out = timed(self.renders, full, trainer, *args, **kwargs)
+            if self.check_step is not None \
+                    and trainer.iteration > self.check_step \
+                    and "eval" not in self.checks:
+                self._check("eval", eval_render_vs_plain,
+                            f"trainer eval render at {trainer.iteration}",
+                            trainer, *last_eval)
+            return out
+
+        def maybe_densify(trainer, pos_grads):
+            it = trainer.iteration
+            if not trainer.densify_due(it):
+                return maybe(trainer, pos_grads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maybe(trainer, pos_grads)
+            torch.cuda.synchronize()
+            self.densify_s.append((it, time.perf_counter() - t0))
+
+        trainer_mod.train_step = train_step
+        trainer_mod.Trainer._render_full = render_full
+        trainer_mod.Trainer._render_eval = render_eval_args
+        trainer_mod.Trainer._maybe_densify = maybe_densify
+        try:
+            yield self
+        finally:
+            trainer_mod.train_step = step
+            trainer_mod.Trainer._render_full = full
+            trainer_mod.Trainer._render_eval = render_eval
+            trainer_mod.Trainer._maybe_densify = maybe
+
+    def step_ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.step_events]
+
+    def render_ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.renders]
+
+
+def lego_capture(root: Path, size: int, device) -> int:
+    """Write the Lego capture of phase 12 under ``root``: TRAINER_VIEWS
+    orbit views rendered by the port from the trained Lego, its positions
+    as the points with colours from their SH DC; check that the port's
+    loader reads the cameras back within CAPTURE_TOL.  Returns the number of
+    points."""
+    params = scenes.lego_params()
+    n = params["positions"].shape[0]
+    dc = params["shs"].reshape(n, -1, 3)[:, 0]
+    rgb = np.round(np.clip(0.5 + SH_C0 * dc, 0.0, 1.0) * 255).astype(np.uint8)
+    cams = [scenes.lego_orbit(2 * math.pi * k / TRAINER_VIEWS, size)
+            for k in range(TRAINER_VIEWS)]
+    p = convert.params_from_numpy(params, device)
+    bg = torch.zeros(3, dtype=torch.float32, device=device)
+    images = [(torch.clamp(render_view(p, cam, size, bg, device)[0], 0.0, 1.0)
+               * 255).round().to(torch.uint8).cpu().numpy() for cam in cams]
+    write_colmap_capture(root, cams, images, params["positions"], rgb)
+    err = capture_readback_error(root, cams)
+    log(check="COLMAP capture read back", views=len(cams), points=n,
+        size=size, max_abs_err=err, tol=CAPTURE_TOL)
+    if not err <= CAPTURE_TOL:
+        raise RuntimeError(f"COLMAP cameras read back {err} from the orbit")
+    return n
+
+
+def _events(out: Path, *names) -> list[dict]:
+    with open(out / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    return [r for r in records if r.get("event") in names]
+
+
+def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
+                  train_step_ms=None) -> dict:
+    """The third main path: ``python -m gstpu_torch.train``'s ``main`` on
+    a COLMAP capture of the Lego; launches counted over the run, then a
+    resume from the state at TRAINER_RESUME."""
+    steps = TRAINER_STEPS
+    log(phase=12, views=TRAINER_VIEWS, size=size, steps=steps,
+        flags=list(TRAINER_FLAGS))
+    shutil.rmtree(root, ignore_errors=True)
+    capture, out = root / "capture", root / "out"
+    n_points = lego_capture(capture, size, device)
+    argv = ["--dataset", str(capture), "--output", str(out), "--iterations",
+            str(steps), *TRAINER_FLAGS]
+    if device.type != "cuda":
+        argv += ["--device", device.type]
+
+    probe = TrainerProbe(check_step=TRAINER_CHECK_STEP)
+    launches = cuda_rasterize.LAUNCHES
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    t0 = time.perf_counter()
+    with probe.attached():
+        trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = dict(launches)
+
+    steps_run = len(probe.steps)
+    renders = len(probe.renders)
+    step_ms, render_ms = probe.step_ms(), probe.render_ms()
+    densify = _events(out, "densify")
+    grows = _events(out, "capacity_grow")
+    overflows = _events(out, "pair_overflow")
+    refits = _events(out, "pair_capacity_grow", "pair_capacity_shrink")
+    evals = {tag: [(e["iteration"], e["psnr"], e["ssim"], e["views"])
+                   for e in _events(out, tag)]
+             for tag in ("eval", "eval_full", "test")}
+    losses = np.asarray(trainer.losses)
+    first, last = losses[:10], losses[-10:]
+    log(path="trainer", launches=got, steps_run=steps_run,
+        replayed_steps=steps_run - steps, eval_renders=renders,
+        points=n_points, capacity=trainer.model.capacity,
+        n_alive=int(trainer.model.n_alive), densify=densify,
+        capacity_grows=grows, flushes=trainer.flushes,
+        rollbacks=sum(bool(e["rolled_back"]) for e in overflows),
+        overflows=overflows, refits=refits,
+        first_losses=first.tolist(), last_losses=last.tolist(), evals=evals,
+        wall_s=wall_s, check_s=probe.check_s,
+        step_ms_median=statistics.median(step_ms),
+        step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+        phase8_train_step_ms=train_step_ms,
+        densify_event_s=probe.densify_s,
+        eval_render_ms_median=statistics.median(render_ms),
+        kernel_vs_plain=probe.checks)
+
+    problems = []
+    if set(probe.checks) != {"step", "eval"}:
+        problems.append(f"kernels held against the plain versions at "
+                        f"{sorted(probe.checks)}, not at a step and an eval "
+                        "render")
+    if got.get("rasterize_bwd") != steps_run \
+            or got.get("rasterize_fwd", 0) < steps_run + renders:
+        problems.append(f"launches {got} for {steps_run} steps and "
+                        f"{renders} eval renders")
+    if not any(e["cloned"] or e["split"] or e["pruned"] for e in densify):
+        problems.append(f"no densify event changed the topology: {densify}")
+    if not all(e["rolled_back"] for e in overflows):
+        problems.append(f"an overflow was not replayed: {overflows}")
+    if len(losses) != steps or not np.isfinite(losses).all() \
+            or not last.mean() < first.mean():
+        problems.append(f"losses: {len(losses)} of {steps}, first 10 mean "
+                        f"{first.mean()}, last 10 mean {last.mean()}")
+    if not all(evals[t] and all(math.isfinite(e[1]) for e in evals[t])
+               for t in evals):
+        problems.append(f"evals: {evals}")
+    written = [out / "point_cloud" / f"iteration_{steps - 1}" /
+               "point_cloud.ply", out / "cameras.json", out / "loss.txt",
+               out / f"render_{steps - 1:06d}.png",
+               out / "metrics.jsonl", out / "state" / f"{TRAINER_RESUME}.pt",
+               out / "state" / f"{steps - 1}.pt"]
+    problems += [f"{p} not written" for p in written if not p.is_file()]
+    if problems:
+        raise RuntimeError(f"trainer: {problems}")
+
+    resume = TrainerProbe()
+    with resume.attached():
+        resumed = train_cli.main(argv + ["--resume", str(TRAINER_RESUME)])
+    with open(out / "loss.txt") as f:
+        lines = f.read().split()
+    log(path="trainer resume", first_iteration=resume.steps[0],
+        steps_run=len(resume.steps), iteration=resumed.iteration,
+        loss_lines=len(lines))
+    if resume.steps[0] != TRAINER_RESUME + 1 or resumed.iteration != steps \
+            or len(lines) != steps \
+            or not np.isfinite(np.asarray(lines, float)).all():
+        raise RuntimeError("the resume did not go on from "
+                           f"{TRAINER_RESUME + 1} to {steps}")
+    return got
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1515,15 +1901,18 @@ def main(argv=None) -> int:
     work_items = main_path["work_items"]
     phase_step_vs_plain(run)
     k2_times = phase_train_timing(run, previous)
+    train_step_ms = k2_times.pop("train_step_ms")
     del run
     k3_errs = phase_k3_checks(device, previous)
     sol, k3_times = phase_sol(device, previous)
     phase_bench(device, sol)
+    trainer_launches = phase_trainer(device, train_step_ms=train_step_ms)
     kernels = [
         {"name": "rasterize_fwd (K1)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:160",
          "launches": launches["rasterize_fwd"],
+         "trainer_launches": trainer_launches["rasterize_fwd"],
          "ctas": ctas["rasterize_fwd"],
          "work_items": work_items["rasterize_fwd"], "max_abs_err": k1_err,
          **k1_times, "library_ms": None},
@@ -1531,6 +1920,7 @@ def main(argv=None) -> int:
          "source": "gstpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:442",
          "launches": launches["rasterize_bwd"],
+         "trainer_launches": trainer_launches["rasterize_bwd"],
          "ctas": ctas["rasterize_bwd"],
          "work_items": work_items["rasterize_bwd"], **k2_errs,
          **k2_times, "library_ms": None}]

@@ -2,10 +2,11 @@
 
 It imports ``torch`` and nothing of JAX or of the ``gstpu`` package.  The
 port so far covers the forward render (preprocess, tile binning, forward
-compositing) and the single-device training step (the differentiable
-render with its hand-written backward, the losses, Adam, the model), and
-the measurement path (``bench``, ``bench_suite``, ``sol_model``, the kernel
-gate ``ops/kernel_check`` and the NeRF loader ``data/nerf``).  The forward
+compositing), single-device training (the differentiable render with its
+hand-written backward, the losses, Adam, the model, densification, the
+``Trainer`` and ``python -m gstpu_torch.train``, the NeRF and COLMAP
+loaders) and the measurement path (``bench``, ``bench_suite``,
+``sol_model``, the kernel gate ``ops/kernel_check``).  The forward
 and backward compositing are hand-written CUDA kernels for the H100
 (``csrc/rasterize_fwd.cu``, ``csrc/rasterize_bwd.cu``), and so is the
 speed-of-light model's compositing (``csrc/sol_compositing.cu``), each with

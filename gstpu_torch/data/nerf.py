@@ -11,8 +11,9 @@ Port of ``gstpu/data/nerf.py``, with the reference loader's semantics:
   official 3DGS ``-r``);
 - ``depth()`` reads the ``*_depth_*.png`` companion of a frame.
 
-``imageio`` and ``PIL`` are imported where they are used, so the module
-imports without them.  Arrays are NumPy; the caller moves them to a device.
+Frames are read with ``utils.image.imread`` and resized with PIL, which is
+imported where it is used, so the module imports without it.  Arrays are
+NumPy; the caller moves them to a device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict
 import numpy as np
 
 from gstpu_torch.utils.camera import load_nerf_cameras
+from gstpu_torch.utils.image import imread
 
 
 def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -66,9 +68,7 @@ class NerfSyntheticDataset:
         return self.cameras[0]["height"]
 
     def _load_u8(self, idx: int) -> np.ndarray:
-        import imageio.v2 as imageio
-
-        img = imageio.imread(self.image_paths[idx])
+        img = imread(self.image_paths[idx])
         if img.ndim == 2:
             img = np.stack([img] * 3, -1)
         return resize_u8(img, self.width, self.height)
@@ -110,13 +110,11 @@ class NerfSyntheticDataset:
         is background); callers scale by ``depth_scale`` onto the rendered
         inverse-depth channel.  The mask marks pixels with geometry.
         """
-        import imageio.v2 as imageio
-
         path = self.depth_path(idx)
         if path is None:
             raise FileNotFoundError(
                 f"no *_depth_*.png next to {self.image_paths[idx]}")
-        img = imageio.imread(path)
+        img = imread(path)
         if img.ndim == 3:
             img = img[..., 0]
         img = resize_u8(img, self.width, self.height)

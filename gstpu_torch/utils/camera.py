@@ -25,6 +25,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from gstpu_torch.utils.image import imread
+
 
 @dataclasses.dataclass
 class Camera:
@@ -211,16 +213,13 @@ def load_nerf_cameras(dataset_path: str, split: str,
     """Parse ``transforms_{split}.json`` of a NeRF-synthetic dataset:
     (cameras, image paths).  The image size is read from the first frame;
     ``downscale`` divides it (official 3DGS ``-r``) and the pixel focal with
-    it, so the field of view is unchanged.  Needs ``imageio``."""
-    import imageio.v2 as imageio
-
+    it, so the field of view is unchanged."""
     transforms_path = os.path.join(dataset_path, f"transforms_{split}.json")
     with open(transforms_path) as f:
         transforms = json.load(f)
 
     first = transforms["frames"][0]
-    img = imageio.imread(os.path.join(dataset_path,
-                                      first["file_path"] + ".png"))
+    img = imread(os.path.join(dataset_path, first["file_path"] + ".png"))
     height, width = img.shape[0] // downscale, img.shape[1] // downscale
     focal = 0.5 * width / np.tan(0.5 * transforms["camera_angle_x"])
 

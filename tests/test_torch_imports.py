@@ -30,7 +30,8 @@ def test_port_imports_no_jax_flax_or_gstpu():
     for name in ("ops.cuda_rasterize", "ops.preprocess_bwd", "ops.losses",
                  "optim", "scheduler", "models.gaussians", "trainer",
                  "ops.cuda_build", "data.nerf", "ops.kernel_check",
-                 "sol_model", "bench", "bench_suite"):
+                 "sol_model", "bench", "bench_suite", "densify",
+                 "data.colmap", "train", "utils.image"):
         assert f"gstpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -50,7 +51,8 @@ def test_sources_name_no_jax_flax_or_gstpu_import():
         ROOT / "scripts" / "torch_profile_train.py",
         ROOT / "tests" / "test_torch_cuda.py"]
     for name in ("sol_model.py", "bench.py", "bench_suite.py",
-                 "ops/kernel_check.py", "ops/cuda_build.py", "data/nerf.py"):
+                 "ops/kernel_check.py", "ops/cuda_build.py", "data/nerf.py",
+                 "densify.py", "data/colmap.py", "train.py", "utils/image.py"):
         assert ROOT / "gstpu_torch" / name in files, name
     assert len(files) > 10
     for path in files:

@@ -12,6 +12,10 @@
 - ``bare_ms`` refuses a launch function without argument types and a call
   that never launches it, and puts the function back.
 - ``in_turns`` measures previous, current, current, previous.
+- Phase 12: the COLMAP writer round-trips through the port's loader;
+  ``TrainerProbe`` holds one trainer step and one eval render after its
+  ``check_step`` against the plain compositing, without counting their
+  launches, and puts the trainer's functions back.
 """
 
 import types
@@ -131,3 +135,102 @@ def test_in_turns_measures_previous_current_current_previous():
     assert calls == ["p", "c", "c", "p"]
     assert turns == [11.0, 22.0, 23.0, 14.0]
     assert (previous, current) == (12.5, 22.5)
+
+
+def test_colmap_capture_round_trip(tmp_path):
+    """Phase 12's COLMAP writer through the port's loader at 64x64: the
+    orbit cameras within CAPTURE_TOL, the images and points exactly, and
+    the holdout split of the trainer's default (every 8th view)."""
+    from gstpu_torch.data.colmap import ColmapDataset
+
+    rng = np.random.default_rng(12)
+    cams = [scenes.lego_orbit(2 * np.pi * k / chip_smoke.TRAINER_VIEWS, 64)
+            for k in range(chip_smoke.TRAINER_VIEWS)]
+    images = [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+              for _ in cams]
+    xyz = rng.uniform(-1, 1, (50, 3)).astype(np.float32)
+    rgb = rng.integers(0, 256, (50, 3), dtype=np.uint8)
+    chip_smoke.write_colmap_capture(tmp_path, cams, images, xyz, rgb)
+    assert chip_smoke.capture_readback_error(tmp_path, cams) \
+        <= chip_smoke.CAPTURE_TOL
+    data = ColmapDataset(str(tmp_path), "train", holdout=0)
+    for i in (0, 7, 15):
+        np.testing.assert_array_equal(data.image(i), images[i] / np.float32(
+            255.0))
+    got_xyz, got_rgb = data.points3d()
+    np.testing.assert_array_equal(got_xyz, xyz)
+    np.testing.assert_array_equal(got_rgb, rgb / np.float32(255.0))
+    test = ColmapDataset(str(tmp_path), "test")
+    assert [p.rsplit("/", 1)[1] for p in test.image_paths] \
+        == ["r_00.png", "r_08.png"]
+    assert len(ColmapDataset(str(tmp_path), "train")) == 14
+
+
+def test_rotmat_to_qvec_inverts_the_loader():
+    from gstpu_torch.data.colmap import qvec_to_rotmat
+
+    rng = np.random.default_rng(13)
+    for _ in range(20):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        got = chip_smoke.rotmat_to_qvec(qvec_to_rotmat(q))
+        np.testing.assert_allclose(got, q if q[0] >= 0 else -q, atol=1e-12)
+
+
+class _FakeEvent:
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 1.0
+
+
+def test_uncounted_puts_the_launch_counts_back():
+    launches = dict(cuda_rasterize.LAUNCHES)
+    ctas = dict(cuda_rasterize.CTAS)
+    with pytest.raises(KeyError):
+        with chip_smoke.uncounted():
+            cuda_rasterize.LAUNCHES["rasterize_fwd"] += 3
+            cuda_rasterize.CTAS["rasterize_bwd"] += 7
+            raise KeyError("inside")
+    assert cuda_rasterize.LAUNCHES == launches
+    assert cuda_rasterize.CTAS == ctas
+
+
+def test_trainer_probe_checks_a_step_and_an_eval_render(tmp_path,
+                                                        monkeypatch):
+    """A tiny run on the CPU (where the kernels' wrappers run their plain
+    versions): the probe checks the step of ``check_step`` and the first
+    eval render after it, at the trainer's own settings, and restores the
+    trainer's functions."""
+    from gstpu_torch import trainer as trainer_mod
+    from gstpu_torch.config import GSConfig
+    from scripts.make_tiny_nerf import make_dataset
+
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    make_dataset(tmp_path / "data", size=32, n_train=3, n_val=2)
+    cfg = GSConfig(num_points=64, num_iterations=6, save_interval=3,
+                   eval_views=1, densify_from_iter=1,
+                   densification_interval=2, min_valid_points=1)
+    originals = (trainer_mod.train_step, trainer_mod.Trainer._render_full,
+                 trainer_mod.Trainer._render_eval,
+                 trainer_mod.Trainer._maybe_densify)
+    probe = chip_smoke.TrainerProbe(check_step=3)
+    with probe.attached():
+        trainer = trainer_mod.Trainer(str(tmp_path / "data"),
+                                      str(tmp_path / "out"), cfg,
+                                      device="cpu")
+        trainer.train()
+    assert set(probe.checks) == {"step", "eval"}
+    assert probe.checks["step"]["max_abs_err"] == 0.0
+    assert probe.checks["eval"]["ok"]
+    assert probe.steps == list(range(6))
+    assert [it for it, _ in probe.densify_s] == [2, 4]
+    assert len(probe.renders) == len(probe.render_ms()) > 0
+    assert (trainer_mod.train_step, trainer_mod.Trainer._render_full,
+            trainer_mod.Trainer._render_eval,
+            trainer_mod.Trainer._maybe_densify) == originals
