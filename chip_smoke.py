@@ -78,7 +78,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    10 average below the first 10, eval and test PSNR, the PLY, cameras,
    losses, metrics and states written; the median step time (CUDA events),
    each densify event's time and the eval renders'; then a resume from the
-   state at 30 that starts at 31 and writes the rest of loss.txt.
+   state at 30 that starts at 31 and writes the rest of loss.txt;
+13. the CLIs, through their ``main``s, with K1's launches counted over
+   each: ``python -m gstpu_torch.render`` writes the 1800x1800 example
+   (held against the plain compositing at K1's tolerances, the PNG equal to
+   the render); ``python -m gstpu_torch.eval_model`` on phase 12's PLY and
+   its capture's test split (its PSNR within 0.01 dB of phase 12's test
+   PSNR; its PSNR, of images clipped to [0, 1], within 0.01 dB of a render
+   of that convention, and the Trainer's, of images as rendered, within
+   0.01 dB of one of its own); ``python -m gstpu_torch.render_turntable`` writes 8
+   frames at 800x800 of the trained Lego, frame 0 within one 8-bit level of
+   the orbit view at theta 0; no K2 launch;
+14. the multi-rank path as ranks that share this one card over gloo
+   (``torch.distributed``; NCCL refuses two ranks on one device), on the
+   phase-12 capture at 800x800: first a probe, in pairs of ranks, of the
+   collectives gloo takes CUDA tensors for (it fails if one that
+   ``parallel/collectives.py`` sends from the card is refused); for meshes (n_data, n_model) = (1, 2) and
+   (2, 2), child processes each take one sharded step (``parallel/
+   sharded.py``) from the capture's initial model (capacity 193,580) with
+   one K1 and one K2 launch per rank (counted over the step), hold K1 on
+   their band, K1's checkpoints there and the step's gradients against the
+   plain compositing at that band, and render one frame from their bands;
+   the loss and the gathered gradients are held against the
+   single-process ``loss_and_grads`` (the mean over the cameras) at phase
+   7's tolerances, the interleaved frame against the single-process render
+   at K1's; then ``python -m gstpu_torch.train --n-model 2 --n-data 2`` as
+   4 ranks for 30 steps with a densify event at 20: every exit code within
+   the timeout, one K1 and one K2 launch per step on each rank (rank 0 also
+   K1 per eval render), the same model on every rank after the densify
+   event, finite losses, rank 0's outputs.  Each group of children is
+   killed after SHARDED_TIMEOUT_S seconds.  The step times and the bytes of
+   each collective are transport through host memory on one card: they say
+   nothing of scaling.
 
 Times.  ``ms`` on the kernels line is the bare kernel (``bare_ms``: the
 launch that the wrapper makes, repeated 20 times back to back between two
@@ -110,6 +141,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import datetime
 import importlib.util
 import inspect
 import json
@@ -127,13 +159,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gstpu_torch import bench, bench_suite, convert, scenes, sol_model
+from gstpu_torch import bench, bench_suite, convert, eval_model
+from gstpu_torch import render as render_cli
+from gstpu_torch import render_turntable, scenes, sol_model
 from gstpu_torch import train as train_cli
 from gstpu_torch import trainer as trainer_mod
 from gstpu_torch.config import GSConfig, RenderSettings
 from gstpu_torch.data.colmap import ColmapDataset
 from gstpu_torch.models.gaussians import (SH_C0, GaussianModel,
-                                          activate_params, grow_capacity)
+                                          activate_params, grow_capacity,
+                                          init_model_from_points)
 from gstpu_torch.ops import cuda_build, cuda_rasterize, kernel_check, rasterize
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss, l1_pixel_gradients
@@ -219,6 +254,25 @@ TRAINER_FLAGS = ("--densify-from-iter", "10", "--densification-interval",
                  "20", "--save-interval", "30", "--eval-views", "2")
 CAPTURE_DIR = Path(__file__).resolve().parent / "build" / "lego_colmap"
 CAPTURE_TOL = 1e-5
+# Phase 13, the CLIs: eval_model's PSNR of phase 12's PLY against phase 12's
+# test PSNR and against a render of its convention (clipped to [0, 1]), and
+# the Trainer's test PSNR against one of its (as rendered), within
+# EVAL_PSNR_TOL dB; a turntable of TURNTABLE_FRAMES frames.
+EVAL_PSNR_TOL = 0.01
+TURNTABLE_FRAMES = 8
+# Phase 14, the multi-rank path as ranks that share the one card over gloo:
+# a step check on each (n_data, n_model) mesh from the phase-12 capture's
+# initial model and its first SHARDED_VIEWS train views; then
+# ``python -m gstpu_torch.train`` as 2 x 2 ranks for SHARDED_TRAIN_STEPS
+# steps with a densify event at SHARDED_DENSIFY_AT.  Every group of child
+# processes is killed after SHARDED_TIMEOUT_S seconds.
+SHARDED_MESHES = ((1, 2), (2, 2))
+SHARDED_VIEWS = 2
+SHARDED_TRAIN_STEPS = 30
+SHARDED_DENSIFY_AT = 20
+SHARDED_TRAIN_FLAGS = ("--densify-from-iter", "10",
+                       "--densification-interval", "20", "--eval-views", "2")
+SHARDED_TIMEOUT_S = 600
 # The parent commit's files that --previous reads, by their paths in the
 # repo; PreviousKernels takes them from one directory.
 PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
@@ -262,9 +316,10 @@ def compare(name: str, got, want) -> dict:
     return res
 
 
-def kernel_vs_plain(name: str, prep, pairs, settings) -> dict:
-    got = to_np(cuda_rasterize.composite_forward(prep, pairs, settings))
-    want = to_np(rasterize.composite_forward(prep, pairs, settings))
+def kernel_vs_plain(name: str, prep, pairs, settings, row0: int = 0) -> dict:
+    got = to_np(cuda_rasterize.composite_forward(prep, pairs, settings,
+                                                 row0))
+    want = to_np(rasterize.composite_forward(prep, pairs, settings, row0))
     return compare(f"{name}: kernel vs plain on the card", got, want)
 
 
@@ -275,9 +330,11 @@ def camera_tensors(cam, device):
             f32(cam["camera_center"]))
 
 
-def prep_and_pairs(params, cam, settings):
+def prep_and_pairs(params, cam, settings, row0: int = 0):
     """Preprocess + binning of the port (with the pair cull when the
-    settings ask for it), as ``render_forward`` runs them."""
+    settings ask for it) for the band of ``settings`` from tile row
+    ``row0`` (the whole grid by default), as ``render_forward`` runs
+    them."""
     view, proj, campos = camera_tensors(cam, params["positions"].device)
     prep = preprocess(params["positions"], params["scales"],
                       params["rotations"], params["opacities"], params["shs"],
@@ -288,10 +345,13 @@ def prep_and_pairs(params, cam, settings):
     cull_xy = cull_tcut = None
     if settings.pair_cull:
         cull_xy, cull_tcut = prep.xy, rasterize.pair_cull_threshold(prep)
-    pairs = build_pairs(prep.tiles_touched, prep.rect, prep.depth,
-                        settings.grid_x, settings.num_tiles,
-                        settings.pair_capacity, cull_xy=cull_xy,
-                        cull_tcut=cull_tcut,
+    rect, tiles = rasterize.clip_rect_to_band(
+        prep.rect, prep.tiles_touched, row0, settings.band_rows,
+        settings.row_stride)
+    pairs = build_pairs(tiles, rect, prep.depth, settings.grid_x,
+                        settings.band_tiles, settings.pair_capacity,
+                        cull_xy=cull_xy, cull_tcut=cull_tcut, row0=row0,
+                        row_stride=settings.row_stride,
                         kept_capacity=settings.kept_capacity)
     return prep, pairs
 
@@ -562,15 +622,17 @@ class PreviousKernels:
             for wrapper, names in PARENT_WRAPPERS.items())
 
 
-def k1_checkpoint_checks(name: str, prep, pairs, settings) -> dict:
+def k1_checkpoint_checks(name: str, prep, pairs, settings,
+                         row0: int = 0) -> dict:
     """K1 asked for checkpoints gives outputs bit-identical to K1 without;
     checkpoint k of every tile with a k-th segment is bit-equal to the final
     T, color and inverse depth of K1 run on the tile counts cut to k *
-    ``cuda_rasterize.SEGMENT``.  Raises otherwise."""
+    ``cuda_rasterize.SEGMENT``.  ``row0``: the band's first tile row.
+    Raises otherwise."""
     segment = cuda_rasterize.SEGMENT
-    plain = cuda_rasterize.composite_forward(prep, pairs, settings)
+    plain = cuda_rasterize.composite_forward(prep, pairs, settings, row0)
     *outs, ckpt = cuda_rasterize.composite_forward_checkpointed(
-        prep, pairs, settings)
+        prep, pairs, settings, row0)
     identical = bits_equal(outs, plain)
     n = int(ckpt.work.ends[-1])
     items = ckpt.work.items[:n]
@@ -580,7 +642,7 @@ def k1_checkpoint_checks(name: str, prep, pairs, settings) -> dict:
     for k in range(1, int(items[:, 1].max()) + 1):
         cut = torch.clamp(pairs.tile_count, max=k * segment)
         color, dacc, final_t, _ = cuda_rasterize.composite_forward(
-            prep, pairs._replace(tile_count=cut), settings)
+            prep, pairs._replace(tile_count=cut), settings, row0)
         at_k = items[:, 1] == k
         tiles = items[at_k, 0].long()
         want = torch.cat([final_t[tiles, None], color[tiles].transpose(1, 2),
@@ -1871,6 +1933,626 @@ def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
     return got
 
 
+def zero_launches() -> dict:
+    """Set K1's and K2's launch counts to 0 (after the card is idle) and
+    return the dict that holds them."""
+    launches = cuda_rasterize.LAUNCHES
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    return launches
+
+
+def example_vs_plain(size: int, device) -> dict:
+    """The example scene at ``size`` through ``render_gaussians`` (K1)
+    against the same render with the plain compositing, at K1's
+    tolerances; returns the errors."""
+    pts, shs, scales, rotations, opacities, cam = \
+        render_cli.setup_example_scene(size, size)
+    image, depth, aux = render_cli.render_example(size, device)
+    settings = RenderSettings(width=size, height=size,
+                              pair_capacity=max(default_pair_capacity(3),
+                                                int(aux.num_pairs)))
+    params = convert.params_from_numpy(
+        {"positions": pts, "scales": scales, "rotations": rotations,
+         "opacities": opacities.reshape(-1), "shs": shs}, device)
+    cam = {**cam, "world_to_camera": cam["view_matrix"]}
+    bg = torch.zeros(3, dtype=torch.float32, device=device)
+    # in the image's layout: the tiles' pixels past the image's edge are
+    # not part of it
+    got = (image, depth, rasterize.tiles_to_image(aux.final_t, settings),
+           rasterize.tiles_to_image(aux.n_contrib, settings))
+    want = [rasterize.tiles_to_image(x, settings)
+            for x in plain_outputs(params, cam, settings, bg)]
+    return compare(f"example {size}x{size}: K1 vs plain on the card",
+                   to_np(got), to_np(want))
+
+
+def psnr_conventions(ply: Path, capture: Path, device) -> dict:
+    """Mean PSNR over the capture's test views of the PLY rendered by
+    ``render_forward`` (eval_model's settings), of the image as rendered
+    (the Trainer's eval) and clipped to [0, 1] (eval_model's)."""
+    from gstpu_torch.ops.losses import psnr
+    from gstpu_torch.utils.ply import load_ply, render_space_params
+
+    data = ColmapDataset(str(capture), "test")
+    p = render_space_params(load_ply(ply))
+    n = p["positions"].shape[0]
+    p = {k: np.ascontiguousarray(p[k], np.float32) for k in convert.PARAM_KEYS}
+    p["shs"] = p["shs"].reshape(n, 16, 3)
+    params = convert.params_from_numpy(p, device)
+    bg = torch.zeros(3, dtype=torch.float32, device=device)
+    raw, clipped = [], []
+    for i in range(len(data)):
+        cam = data.camera(i)
+        settings = RenderSettings(width=data.width, height=data.height,
+                                  pair_capacity=1 << 22, tight_radius=True)
+        with uncounted():
+            img = render_cull_view(params, cam, settings, bg)[0]
+        target = torch.from_numpy(data.image(i)).to(device)
+        raw.append(float(psnr(img, target)))
+        clipped.append(float(psnr(torch.clamp(img, 0.0, 1.0), target)))
+    return {"psnr_as_rendered": float(np.mean(raw)),
+            "psnr_clipped": float(np.mean(clipped))}
+
+
+def phase_clis(device, root: Path = CAPTURE_DIR) -> dict:
+    """Phase 13: the render, eval and turntable CLIs on the card, through
+    their ``main``s, with K1's launches counted over each; every output held
+    against a reference on the card.  Returns the launch counts."""
+    log(phase=13)
+    out = root / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    counts = {}
+
+    launches = zero_launches()
+    img8 = render_cli.main(["--out", str(out / "example_render.png")])
+    torch.cuda.synchronize()
+    counts["render"] = dict(launches)
+    with uncounted():
+        errs = example_vs_plain(render_cli.EXAMPLE_SIZE, device)
+        image = render_cli.render_example(render_cli.EXAMPLE_SIZE, device)[0]
+    same_png = bool(np.array_equal(img8, (np.clip(
+        image.cpu().numpy(), 0, 1) * 255).astype(np.uint8)))
+    log(cli="gstpu_torch.render", launches=counts["render"],
+        png=str(out / "example_render.png"), shape=list(img8.shape),
+        png_equals_render=same_png, **errs)
+    if not (same_png and (out / "example_render.png").is_file()
+            and img8.shape == (render_cli.EXAMPLE_SIZE,) * 2 + (3,)
+            and counts["render"]["rasterize_fwd"] >= 1):
+        raise RuntimeError("the example render CLI failed its checks")
+
+    capture, trained = root / "capture", root / "out"
+    ply = trained / "point_cloud" / f"iteration_{TRAINER_STEPS - 1}" \
+        / "point_cloud.ply"
+    tests = _events(trained, "test")
+    launches = zero_launches()
+    line = eval_model.main(["--ply", str(ply), "--dataset", str(capture),
+                            "--split", "test"])
+    torch.cuda.synchronize()
+    counts["eval_model"] = dict(launches)
+    conventions = psnr_conventions(ply, capture, device)
+    trainer_psnr = tests[-1]["psnr"]
+    gaps = {"cli_minus_trainer": line["psnr"] - trainer_psnr,
+            "as_rendered_minus_trainer":
+                conventions["psnr_as_rendered"] - trainer_psnr,
+            "clipped_minus_cli": conventions["psnr_clipped"] - line["psnr"]}
+    log(cli="gstpu_torch.eval_model", launches=counts["eval_model"],
+        line=line, trainer_test_psnr=trainer_psnr, **conventions, gaps=gaps,
+        tol_db=EVAL_PSNR_TOL)
+    # eval_model's PSNR must be the Trainer's test PSNR; as diagnostics,
+    # the Trainer scores the image as rendered, eval_model clipped to [0, 1]
+    # (as the JAX package's do), and each must agree with a render of its
+    # own convention
+    if not (line["views"] == len(ColmapDataset(str(capture), "test"))
+            and counts["eval_model"]["rasterize_fwd"] >= line["views"]
+            and abs(gaps["cli_minus_trainer"]) < EVAL_PSNR_TOL
+            and abs(gaps["as_rendered_minus_trainer"]) < EVAL_PSNR_TOL
+            and abs(gaps["clipped_minus_cli"]) < EVAL_PSNR_TOL):
+        raise RuntimeError(f"eval_model: {line}, {conventions}, trainer "
+                           f"{trainer_psnr}")
+
+    gif = out / "turntable.gif"
+    launches = zero_launches()
+    frames = render_turntable.main(["--ply", str(scenes.LEGO_PLY), "--out",
+                                    str(gif), "--frames",
+                                    str(TURNTABLE_FRAMES), "--size",
+                                    str(SIZE)])
+    torch.cuda.synchronize()
+    counts["render_turntable"] = dict(launches)
+    with uncounted():
+        params = convert.params_from_numpy(scenes.lego_params(), device)
+        bg = torch.zeros(3, dtype=torch.float32, device=device)
+        want = render_view(params, scenes.lego_orbit(0.0, SIZE), SIZE, bg,
+                           device)[0]
+    want8 = (torch.clamp(want, 0, 1).cpu().numpy() * 255).astype(np.uint8)
+    diff = np.abs(frames[0].astype(int) - want8.astype(int))
+    from PIL import Image
+    with Image.open(gif) as im:
+        n_frames = im.n_frames
+    log(cli="gstpu_torch.render_turntable",
+        launches=counts["render_turntable"], frames=len(frames),
+        gif_frames=n_frames, frame0_max_diff_levels=int(diff.max()),
+        frame0_differing_pixels=int((diff > 0).any(-1).sum()))
+    if not (len(frames) == n_frames == TURNTABLE_FRAMES
+            and counts["render_turntable"]["rasterize_fwd"]
+            == TURNTABLE_FRAMES and diff.max() <= 1):
+        raise RuntimeError("the turntable CLI failed its checks")
+    if any(c["rasterize_bwd"] for c in counts.values()):
+        raise RuntimeError(f"a render CLI launched K2: {counts}")
+    return {k: c["rasterize_fwd"] for k, c in counts.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-rank path on one card
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(commands: list, timeout: float, logs: Path) -> list:
+    """Start every command at once (cwd: the checkout), wait for all within
+    ``timeout`` seconds, kill every one still running after it; returns
+    each one's (exit code, stdout).  Each one's output goes to ``logs``."""
+    root = Path(__file__).resolve().parent
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, files = [], []
+    for i, cmd in enumerate(commands):
+        out = open(logs / f"rank{i}.out", "w+")
+        err = open(logs / f"rank{i}.err", "w+")
+        files.append((out, err))
+        procs.append(subprocess.Popen(cmd, cwd=root, stdout=out, stderr=err,
+                                      text=True))
+    deadline = time.monotonic() + timeout
+    codes = []
+    try:
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(deadline - time.monotonic(),
+                                                0.1)))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for (out, err), code in zip(files, codes):
+        out.seek(0)
+        err.seek(0)
+        text, errors = out.read(), err.read()
+        out.close()
+        err.close()
+        if code != 0:
+            print(errors[-4000:], file=sys.stderr, flush=True)
+        results.append((code, text))
+    return results
+
+
+GLOO_PROBED = ("all_gather", "all_to_all", "exchange", "all_reduce",
+               "reduce_scatter")
+
+
+def gloo_probe_child(args: dict) -> int:
+    """One of two ranks on one card over gloo (run as ``python -c``): runs
+    one collective, ``args["collective"]``, on CUDA tensors and saves "ok",
+    "wrong" (it ran but gave other values) or the first line of the error.
+    A collective that gloo takes but mishandles can kill the process, so
+    each runs in a pair of its own."""
+    import torch.distributed as dist
+
+    rank = args["rank"]
+    device = torch.device(args["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{args['coordinator']}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    other = 1 - rank
+    x = torch.arange(4, dtype=torch.float32, device=device) + 10 * rank
+    both = torch.cat([torch.arange(4.0), torch.arange(4.0) + 10]).to(device)
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts), both
+
+    def all_to_all():
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return out, torch.cat([both[2 * rank:2 * rank + 2],
+                               both[4 + 2 * rank:6 + 2 * rank]])
+
+    def exchange():
+        got = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, other), dist.P2POp(dist.irecv, got,
+                                                             other)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return got, both[4 * other:4 * other + 4]
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y, both[:4] + both[4:]
+
+    def reduce_scatter():
+        out = torch.empty_like(x[:2])
+        dist.reduce_scatter(out, list(x.clone().chunk(2)))
+        s = both[:4] + both[4:]
+        return out, s[2 * rank:2 * rank + 2]
+
+    probes = {f.__name__: f for f in (all_gather, all_to_all, exchange,
+                                      all_reduce, reduce_scatter)}
+    try:
+        try:
+            got, want = probes[args["collective"]]()
+            result = "ok" if torch.equal(got, want) else "wrong"
+        except Exception as exc:  # a refusal is the finding
+            result = str(exc).splitlines()[0][:200]
+        torch.save(result, args["out"])
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_probe(device, logs: Path) -> dict:
+    """Which collectives gloo takes CUDA tensors for, each from two ranks on
+    this card; fails if one that ``parallel/collectives.py`` hands CUDA
+    tensors (every transport not in ``collectives.GLOO_HOST_ONLY``) is
+    refused."""
+    from gstpu_torch.parallel import collectives
+
+    cmds, outs = [], {}
+    for name in GLOO_PROBED:
+        coordinator = f"127.0.0.1:{free_port()}"
+        outs[name] = [logs / f"probe_{name}{r}.pt" for r in range(2)]
+        for r in range(2):
+            child = dict(rank=r, coordinator=coordinator, collective=name,
+                         out=str(outs[name][r]), device=device.type)
+            cmds.append([sys.executable, "-c",
+                         "import sys, chip_smoke; sys.exit("
+                         f"chip_smoke.gloo_probe_child({child!r}))"])
+    codes = [c for c, _ in run_children(cmds, 180, logs / "probe")]
+    found = {}
+    for i, name in enumerate(GLOO_PROBED):
+        pair = codes[2 * i:2 * i + 2]
+        if pair != [0, 0]:
+            found[name] = f"crashed: exit codes {pair}"
+            continue
+        got = [torch.load(o, weights_only=True) for o in outs[name]]
+        found[name] = got[0] if got[0] == got[1] else f"ranks differ: {got}"
+    direct = [k for k in collectives.GLOO_TRANSPORTS
+              if k not in collectives.GLOO_HOST_ONLY]
+    log(path="gloo probe, CUDA tensors", torch=torch.__version__,
+        results=found, staged_through_host=sorted(collectives.GLOO_HOST_ONLY),
+        sent_direct=direct)
+    refused = [k for k in direct if found[k] != "ok"]
+    if refused:
+        raise RuntimeError(f"gloo fails CUDA tensors for {refused}: {found}")
+    return found
+
+
+def sharded_inputs(capture: Path, path: Path, device) -> dict:
+    """Phase 14's step inputs from the phase-12 capture, saved to ``path``
+    for the ranks: the default GSConfig's initial model from the capture's
+    points at capacity 193,579 rounded up to a multiple of 2, two train
+    views (cameras, targets), the trainer's settings at 800x800."""
+    cfg = GSConfig()
+    data = ColmapDataset(str(capture), "train")
+    xyz, rgb = data.points3d()
+    cap = int(len(xyz) * cfg.capacity_headroom)
+    cap = -(-cap // 2) * 2
+    model = init_model_from_points(cfg, xyz, rgb, capacity=cap,
+                                   device=device)
+    cams = [data.camera(i) for i in range(SHARDED_VIEWS)]
+    pair_cap = round_capacity(cap * cfg.pair_capacity_per_gaussian)
+    inputs = {
+        "model": {f: getattr(model, f).cpu()
+                  for f in GaussianModel.__dataclass_fields__},
+        "views": torch.stack([torch.from_numpy(np.asarray(
+            c["world_to_camera"], np.float32)) for c in cams]),
+        "projs": torch.stack([torch.from_numpy(np.asarray(
+            c["full_proj_matrix"], np.float32)) for c in cams]),
+        "camposes": torch.stack([torch.from_numpy(np.asarray(
+            c["camera_center"], np.float32)) for c in cams]),
+        "tans": [(float(c["tan_fovx"]), float(c["tan_fovy"])) for c in cams],
+        "targets": torch.stack([torch.from_numpy(data.image(i))
+                                for i in range(SHARDED_VIEWS)]),
+        "size": (data.width, data.height), "pair_capacity": pair_cap}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(inputs, path)
+    return inputs
+
+
+def _inputs_on(inputs: dict, device):
+    model = GaussianModel(**{k: x.to(device)
+                             for k, x in inputs["model"].items()})
+    width, height = inputs["size"]
+    settings = train_settings(GSConfig(), width, height,
+                              inputs["pair_capacity"],
+                              inputs["pair_capacity"])
+    return model, settings
+
+
+def sharded_child(args: dict) -> int:
+    """One rank of phase 14's step check (run as ``python -c``): one
+    sharded step of the inputs' model on its mesh, with K1 and K2 launches
+    counted; K1 on its band (with and without checkpoints) and the step's
+    gradients held against the plain compositing at the same band; one
+    sharded render.  Saves its results to ``args["out"]``."""
+    from gstpu_torch.parallel import collectives, make_mesh
+    from gstpu_torch.parallel.multihost import init_distributed, shard_rows
+    from gstpu_torch.parallel.sharded import (band_settings, render_sharded,
+                                              sharded_loss_and_grads,
+                                              target_band)
+
+    rank = args["rank"]
+    device = torch.device(args["device"])
+    backend = init_distributed(args["coordinator"], args["world"], rank,
+                               device=device)
+    try:
+        mesh = make_mesh(n_data=args["n_data"], n_model=args["n_model"])
+        inputs = torch.load(args["inputs"], weights_only=True)
+        model, settings = _inputs_on(inputs, device)
+        cfg = GSConfig()
+        d, m = mesh.coords
+        view, proj, campos = (inputs[k][d].to(device)
+                              for k in ("views", "projs", "camposes"))
+        tx, ty = inputs["tans"][d]
+        bset = band_settings(settings, mesh.n_model)
+        band = target_band(inputs["targets"][d].to(device), settings,
+                           mesh.n_model, m)
+        shard = {k: shard_rows(x, mesh)
+                 for k, x in model.param_dict().items()}
+        alive = shard_rows(model.alive, mesh)
+
+        def step(**kw):
+            return sharded_loss_and_grads(settings, cfg, mesh, shard, alive,
+                                          view, proj, campos, tx, ty,
+                                          band, **kw)
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+
+        step()                                          # warm-up
+        launches = zero_launches()
+        bytes_before = dict(collectives.BYTES)
+        t0 = time.perf_counter()
+        loss, grads, counts = step()
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        got = dict(launches)
+        moved = {k: v - bytes_before[k] for k, v in collectives.BYTES.items()}
+        with uncounted():
+            _, grads_plain, _ = step(_compositing=PLAIN_COMPOSITING)
+            checks = {"step_vs_plain": check_grads(
+                f"rank {rank} {mesh.shape}: sharded step, kernels vs plain "
+                "at its band", grads, grads_plain, flip_tolerant=True)}
+            live = {k: x[:int(model.n_alive)]
+                    for k, x in model.param_dict().items()}
+            cam = {"world_to_camera": inputs["views"][d].numpy(),
+                   "full_proj_matrix": inputs["projs"][d].numpy(),
+                   "camera_center": inputs["camposes"][d].numpy(),
+                   "tan_fovx": tx, "tan_fovy": ty}
+            prep, pairs = prep_and_pairs(live, cam, bset, row0=m)
+            checks["k1_band"] = kernel_vs_plain(
+                f"rank {rank}: K1 on band {m}::{mesh.n_model}", prep, pairs,
+                bset, row0=m)
+            if device.type == "cuda":  # the plain version makes none
+                checks["k1_checkpoints_band"] = k1_checkpoint_checks(
+                    f"rank {rank}: band {m}::{mesh.n_model}", prep, pairs,
+                    bset, row0=m)
+            bg = torch.zeros(3, dtype=torch.float32, device=device)
+            frame = render_sharded(settings, mesh, model.param_dict(),
+                                   model.alive, view, proj, campos, bg, tx,
+                                   ty)
+        whole = collectives.all_gather_many(list(grads.values()), mesh.model)
+        torch.save({"rank": rank, "coords": mesh.coords, "backend": backend,
+                    "loss": float(loss), "counts": counts.cpu().tolist(),
+                    "grads": {k: x.cpu() for k, x in zip(grads, whole)},
+                    "launches": got, "step_ms": step_ms,
+                    "collective_bytes": moved,
+                    "band_pairs": int(pairs.num_pairs),
+                    "band_tiles": bset.band_tiles,
+                    "frame": {k: x.cpu() for k, x in frame.items()},
+                    "checks": checks}, args["out"])
+        return 0
+    finally:
+        if backend is not None:
+            torch.distributed.destroy_process_group()
+
+
+def sharded_step_check(inputs: dict, inputs_path: Path, device, n_data: int,
+                       n_model: int, logs: Path) -> dict:
+    """Phase 14's step check on one mesh: spawn its ranks on this card,
+    then hold their loss and gathered gradients against the single-process
+    ``loss_and_grads`` (the mean over the batch's cameras) and their
+    sharded render against the single-process render."""
+    world = n_data * n_model
+    coordinator = f"127.0.0.1:{free_port()}"
+    outs = [logs / f"rank{r}.pt" for r in range(world)]
+    child_args = [dict(rank=r, world=world, n_data=n_data, n_model=n_model,
+                       coordinator=coordinator, inputs=str(inputs_path),
+                       out=str(outs[r]), device=device.type)
+                  for r in range(world)]
+    cmds = [[sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.sharded_child("
+             f"{child_args[r]!r}))"] for r in range(world)]
+    t0 = time.perf_counter()
+    results = run_children(cmds, SHARDED_TIMEOUT_S, logs)
+    wall_s = time.perf_counter() - t0
+    codes = [c for c, _ in results]
+    if codes != [0] * world:
+        raise RuntimeError(f"sharded step {n_data}x{n_model}: exit codes "
+                           f"{codes}")
+    ranks = [torch.load(o, weights_only=True) for o in outs]
+
+    model, settings = _inputs_on(inputs, device)
+    cfg = GSConfig()
+    losses, grads = [], None
+    for d in range(n_data):
+        tx, ty = inputs["tans"][d]
+        loss, g, _ = loss_and_grads(
+            settings, cfg, model, inputs["views"][d].to(device),
+            inputs["projs"][d].to(device), inputs["camposes"][d].to(device),
+            tx, ty, inputs["targets"][d].to(device))
+        losses.append(float(loss))
+        grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+    want_loss = float(np.mean(losses))
+    want = {k: (x / n_data).cpu() for k, x in grads.items()}
+    name = f"sharded step {n_data}x{n_model}"
+    for r in ranks:
+        rel = abs(r["loss"] - want_loss) / abs(want_loss)
+        log(check=f"{name}: rank {r['rank']} {r['coords']} loss",
+            loss=r["loss"], loss_single=want_loss, rel=rel)
+        if not rel < LOSS_REL_TOL:
+            raise RuntimeError(f"{name}: loss differs by {rel} relative")
+        check_grads(f"{name}: rank {r['rank']} gathered gradients vs the "
+                    "single-process step", r["grads"], want,
+                    flip_tolerant=True)
+    bg = torch.zeros(3, dtype=torch.float32, device=device)
+    tx, ty = inputs["tans"][0]
+    with torch.no_grad(), uncounted():
+        p = model.param_dict()  # the raw scheme: stored = render space
+        image, depth, aux = rasterize.render_forward(
+            settings, tx, ty, 1.0, p["positions"], p["scales"],
+            p["rotations"], p["opacities"], p["shs"],
+            inputs["views"][0].to(device), inputs["projs"][0].to(device),
+            inputs["camposes"][0].to(device), bg, model.alive)
+    want_frame = (image, depth,
+                  rasterize.tiles_to_image(aux.final_t, settings),
+                  rasterize.tiles_to_image(aux.n_contrib, settings))
+    frame_errs = {}
+    for r in ranks:
+        if r["coords"][0] == 0:
+            f = r["frame"]
+            frame_errs[r["rank"]] = compare(
+                f"{name}: rank {r['rank']}'s interleaved bands vs the "
+                "single-process render",
+                to_np((f["image"], f["depth"], f["final_t"],
+                       f["n_contrib"])), to_np(want_frame))
+    line = {"mesh": {"data": n_data, "model": n_model},
+            "backend": ranks[0]["backend"], "ranks": world,
+            "wall_s": wall_s,
+            "step_ms_per_rank": [r["step_ms"] for r in ranks],
+            "collective_bytes_per_step_per_rank": [r["collective_bytes"]
+                                                   for r in ranks],
+            "band_pairs": [r["band_pairs"] for r in ranks],
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "checks_per_rank": [r["checks"] for r in ranks],
+            "note": "ranks share one card over gloo; collectives are "
+                    "transport through host memory and say nothing of "
+                    "NVLink scaling"}
+    log(path=name, **line)
+    if any(r["launches"] != {"rasterize_fwd": 1, "rasterize_bwd": 1}
+           for r in ranks):
+        raise RuntimeError(f"{name}: launches in one step per rank "
+                           f"{line['launches_per_rank']}, not one K1 and one "
+                           "K2 each")
+    return {"launches": [r["launches"] for r in ranks],
+            "k1_band_color_err": max(r["checks"]["k1_band"]["color_err"]
+                                     for r in ranks),
+            "step_vs_plain": [r["checks"]["step_vs_plain"] for r in ranks],
+            "frame": frame_errs}
+
+
+def sharded_training(capture: Path, out: Path, logs: Path, device) -> dict:
+    """Phase 14's training run: ``python -m gstpu_torch.train`` as 2 x 2
+    ranks on this card, SHARDED_TRAIN_STEPS steps with a densify event at
+    20; checks every rank's exit code, launches and densify digest, and
+    rank 0's outputs."""
+    shutil.rmtree(out, ignore_errors=True)
+    world = 4
+    coordinator = f"127.0.0.1:{free_port()}"
+    cmds = [[sys.executable, "-m", "gstpu_torch.train", "--dataset",
+             str(capture), "--output", str(out), "--iterations",
+             str(SHARDED_TRAIN_STEPS), *SHARDED_TRAIN_FLAGS, "--n-model", "2",
+             "--n-data", "2", "--coordinator", coordinator,
+             "--num-processes", str(world), "--process-id", str(r)]
+            + (["--device", device.type] if device.type != "cuda" else [])
+            for r in range(world)]
+    t0 = time.perf_counter()
+    results = run_children(cmds, SHARDED_TIMEOUT_S, logs)
+    wall_s = time.perf_counter() - t0
+    codes = [c for c, _ in results]
+    if codes != [0] * world:
+        raise RuntimeError(f"sharded training: exit codes {codes}")
+    runs = [json.loads(text.strip().splitlines()[-1]) for _, text in results]
+    with open(out / "loss.txt") as f:
+        losses = np.asarray(f.read().split(), float)
+    densify = _events(out, "densify")
+    evals = _events(out, "eval", "eval_full", "test")
+    line = {"backend": runs[0]["backend"], "ranks": world,
+            "mesh": runs[0]["mesh"], "wall_s": wall_s,
+            "steps_run": [r["steps_run"] for r in runs],
+            "step_ms_median_per_rank": [r["step_ms_median"] for r in runs],
+            "collective_bytes_per_step_per_rank": [
+                {k: v / r["steps_run"] for k, v in
+                 r["collective_bytes"].items()} for r in runs],
+            "launches_per_rank": [r["kernel_launches"] for r in runs],
+            "densify_digests": [r["densify_digests"] for r in runs],
+            "densify": densify, "evals": evals,
+            "first_losses": losses[:5].tolist(),
+            "last_losses": losses[-5:].tolist(),
+            "note": "ranks share one card over gloo; collectives are "
+                    "transport through host memory and say nothing of "
+                    "NVLink scaling; step ms from CUDA events around each "
+                    "step"}
+    log(path="sharded training", **line)
+    problems = []
+    for r in runs:
+        k1, k2 = (r["kernel_launches"][k]
+                  for k in ("rasterize_fwd", "rasterize_bwd"))
+        if k2 != r["steps_run"] or (k1 != r["steps_run"] if r["rank"]
+                                    else k1 < r["steps_run"]):
+            problems.append(f"rank {r['rank']}: launches {k1} / {k2} for "
+                            f"{r['steps_run']} steps")
+        if r["iteration"] != SHARDED_TRAIN_STEPS:
+            problems.append(f"rank {r['rank']} ended at {r['iteration']}")
+    digests = [r["densify_digests"] for r in runs]
+    if not (digests[0] and all(d == digests[0] for d in digests)
+            and [it for it, _ in digests[0]] == [SHARDED_DENSIFY_AT]):
+        problems.append(f"densify digests differ or are missing: {digests}")
+    if len(losses) != SHARDED_TRAIN_STEPS or not np.isfinite(losses).all():
+        problems.append(f"losses: {losses}")
+    last = SHARDED_TRAIN_STEPS - 1
+    written = [out / "point_cloud" / f"iteration_{last}" / "point_cloud.ply",
+               out / "cameras.json", out / "metrics.jsonl",
+               out / "state" / f"{last}.pt"]
+    problems += [f"{p} not written" for p in written if not p.is_file()]
+    if problems:
+        raise RuntimeError(f"sharded training: {problems}")
+    return {"launches": line["launches_per_rank"],
+            "steps_run": line["steps_run"]}
+
+
+def phase_multirank(device, root: Path = CAPTURE_DIR) -> dict:
+    """Phase 14: the multi-rank path as ranks that share this one card over
+    gloo, on the phase-12 capture at full width."""
+    log(phase=14, meshes=SHARDED_MESHES, steps=SHARDED_TRAIN_STEPS)
+    capture, base = root / "capture", root / "multirank"
+    inputs_path = base / "inputs.pt"
+    gloo_probe(device, base)
+    inputs = sharded_inputs(capture, inputs_path, device)
+    out = {}
+    for n_data, n_model in SHARDED_MESHES:
+        out[f"{n_data}x{n_model}"] = sharded_step_check(
+            inputs, inputs_path, device, n_data, n_model,
+            base / f"step_{n_data}x{n_model}")
+    out["training"] = sharded_training(capture, base / "train_out",
+                                       base / "train", device)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1907,12 +2589,24 @@ def main(argv=None) -> int:
     sol, k3_times = phase_sol(device, previous)
     phase_bench(device, sol)
     trainer_launches = phase_trainer(device, train_step_ms=train_step_ms)
+    cli_launches = phase_clis(device)
+    multirank = phase_multirank(device)
     kernels = [
         {"name": "rasterize_fwd (K1)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:160",
          "launches": launches["rasterize_fwd"],
          "trainer_launches": trainer_launches["rasterize_fwd"],
+         "cli_launches": cli_launches,
+         "sharded_step_launches": {
+             m: [r["rasterize_fwd"] for r in v["launches"]]
+             for m, v in multirank.items() if m != "training"},
+         "sharded_training_launches": [
+             r["rasterize_fwd"] for r in multirank["training"]["launches"]],
+         "sharded_training_steps": multirank["training"]["steps_run"],
+         "band_max_abs_err": max(v["k1_band_color_err"]
+                                 for m, v in multirank.items()
+                                 if m != "training"),
          "ctas": ctas["rasterize_fwd"],
          "work_items": work_items["rasterize_fwd"], "max_abs_err": k1_err,
          **k1_times, "library_ms": None},
@@ -1921,6 +2615,12 @@ def main(argv=None) -> int:
          "replaces": "gstpu/ops/pallas_rasterize.py:442",
          "launches": launches["rasterize_bwd"],
          "trainer_launches": trainer_launches["rasterize_bwd"],
+         "sharded_step_launches": {
+             m: [r["rasterize_bwd"] for r in v["launches"]]
+             for m, v in multirank.items() if m != "training"},
+         "sharded_training_launches": [
+             r["rasterize_bwd"] for r in multirank["training"]["launches"]],
+         "sharded_training_steps": multirank["training"]["steps_run"],
          "ctas": ctas["rasterize_bwd"],
          "work_items": work_items["rasterize_bwd"], **k2_errs,
          **k2_times, "library_ms": None}]

@@ -50,7 +50,9 @@ class RenderSettings:
     # Stride between the band's tile rows: band row k is global tile row
     # row0 + k*row_stride (round-robin rows of the multi-device path).
     row_stride: int = 1
-    # Mesh axis name of the sharded multi-device path (a later slice).
+    # Mesh axis of the sharded multi-device path ("model"): each rank runs
+    # the per-Gaussian preprocess and adjoint chain on its slice.  The
+    # mesh passed to the render resolves the name to a process group.
     shard_axis: str | None = None
     # Exact per-tile pair culling: drop (tile, Gaussian) pairs whose maximum
     # alpha over the tile's pixel rect is provably < 1/255.  The image is

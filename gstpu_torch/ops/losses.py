@@ -10,6 +10,9 @@ package.  Gradients come from autograd.
   convolutions go through cuDNN on the card, which runs float32 in TF32
   unless ``torch.backends.cudnn.allow_tf32`` is False; the package switches
   it off on import and the train step again before each step.
+- ``ssim_map_chunks`` is the same SSIM over row chunks with 5-row halos
+  (``_filter_chunks``: valid vertically, zero-padded horizontally), for the
+  band-local SSIM of the sharded train step.
 """
 
 from __future__ import annotations
@@ -61,6 +64,49 @@ def _filter2d_separable(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor
     y = F.conv2d(x, kv, padding=(k // 2, 0), groups=c)
     y = F.conv2d(y, kh, padding=(0, k // 2), groups=c)
     return y[0].permute(1, 2, 0)
+
+
+def _filter_chunks(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """Separable filter of halo-extended row chunks (B, He, W, C): valid
+    vertically (He -> He - (k - 1)), zero-padded horizontally.
+
+    Equal to the full image's ``_filter2d_separable`` wherever the (k-1)/2
+    halo rows hold the image's true neighbouring rows (zeros at its
+    borders): the band-local SSIM of the sharded step, which exchanges
+    5-row halos with its neighbours in place of gathering the image.
+    """
+    k = window.shape[0]
+    c = x.shape[-1]
+    y = x.permute(0, 3, 1, 2)                            # (B, C, He, W)
+    kv = window.reshape(1, 1, k, 1).expand(c, 1, k, 1)
+    kh = window.reshape(1, 1, 1, k).expand(c, 1, 1, k)
+    y = F.conv2d(y, kv, groups=c)
+    y = F.conv2d(y, kh, padding=(0, k // 2), groups=c)
+    return y.permute(0, 2, 3, 1)
+
+
+def ssim_map_chunks(img_ext: torch.Tensor,
+                    tgt_ext: torch.Tensor) -> torch.Tensor:
+    """Per-pixel SSIM of halo-extended chunks.
+
+    ``img_ext``/``tgt_ext``: (B, rows + 2*5, W, 3), each chunk with 5 halo
+    rows above and below (the true neighbouring rows, or zeros at the
+    image's border).  Returns the (B, rows, W, 3) map of those rows of the
+    full image's ``ssim`` formula.
+    """
+    win = _gaussian_window(img_ext.device)
+    stack = torch.cat([img_ext, tgt_ext, img_ext * img_ext,
+                       tgt_ext * tgt_ext, img_ext * tgt_ext], dim=-1)
+    mu1, mu2, x2, y2, xy = torch.chunk(_filter_chunks(stack, win), 5, dim=-1)
+    mu1_sq = mu1 * mu1
+    mu2_sq = mu2 * mu2
+    mu12 = mu1 * mu2
+    sigma1 = x2 - mu1_sq
+    sigma2 = y2 - mu2_sq
+    sigma12 = xy - mu12
+    num = (2.0 * mu12 + SSIM_C1) * (2.0 * sigma12 + SSIM_C2)
+    den = (mu1_sq + mu2_sq + SSIM_C1) * (sigma1 + sigma2 + SSIM_C2)
+    return num / den
 
 
 def ssim(rendered: torch.Tensor, target: torch.Tensor,

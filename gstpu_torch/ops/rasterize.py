@@ -17,10 +17,20 @@ and are what runs for tensors on the CPU.  ``segment_sum_pair_rows`` is the
 epilogue that turns the backward kernel's per-pair rows into per-Gaussian
 gradients.
 
-``render`` is the single-device differentiable render (a
-``torch.autograd.Function``): preprocess, binning, compositing, background and
-tiles back to an image, with the hand-written backward of the JAX package's
-custom VJP.  ``render_forward`` runs the same forward without autograd.
+``render`` is the differentiable render (a ``torch.autograd.Function``):
+preprocess, binning, compositing, background and tiles back to an image,
+with the hand-written backward of the JAX package's custom VJP.
+``render_forward`` runs the same forward without autograd.
+
+Sharded (``settings.shard_axis``, the name of an axis of the ``mesh`` that
+the caller passes): each rank preprocesses its 1/size slice of the
+Gaussians and all-gathers the ``PreprocessOut``; the backward
+reduce-scatters the compositing's per-Gaussian cotangents first, runs the
+adjoint chain on the slice alone and returns gradients at full size, zero
+outside the slice, so that the reduce-scatter of the caller's all-gather
+of the parameters hands each rank its slice complete
+(``parallel/sharded.py``).  When N does not divide by the axis size, a
+warning says so and every rank runs the whole chain.
 """
 
 from __future__ import annotations
@@ -37,6 +47,47 @@ from gstpu_torch.ops.preprocess import PreprocessOut, preprocess
 ALPHA_MIN = 1.0 / 255.0   # forward.py:481
 T_EPS = 1e-4              # forward.py:487
 ALPHA_MAX = 0.99          # forward.py:478
+
+_SLICE_FALLBACK_WARNED: set = set()
+
+
+def _warn_slice_fallback(n: int, size: int, where: str) -> None:
+    """Warn, once per shape, that the sliced per-Gaussian chain is off.
+
+    The sharded path runs the preprocess and the adjoint chain on each
+    rank's 1/size slice of the Gaussians; the Trainer and
+    ``make_sharded_render`` round N up to a multiple of the axis size, so
+    this fires only for other callers."""
+    import warnings
+
+    key = (n, size, where)
+    if key not in _SLICE_FALLBACK_WARNED:
+        _SLICE_FALLBACK_WARNED.add(key)
+        warnings.warn(
+            f"sharded render: N={n} is not a multiple of the 'model' axis "
+            f"size {size}; the sliced {where} chain is DISABLED and every "
+            "rank runs it over all N Gaussians. Pad the parameter capacity "
+            "to a multiple of the axis size (the Trainer and "
+            "make_sharded_render do this automatically).", RuntimeWarning)
+
+
+def _slice_axis(settings: RenderSettings, mesh, n: int, where: str):
+    """The mesh axis whose ranks each take a slice of the N Gaussians'
+    preprocess and adjoint chain, or None: not sharded, Q15's translation
+    bias (affine, not linear, so it stays whole), an axis of one rank, or N
+    not a multiple of its size (with a warning)."""
+    if settings.shard_axis is None or settings.grad_bias_parity:
+        return None
+    if mesh is None:
+        raise ValueError(f"settings.shard_axis={settings.shard_axis!r} needs "
+                         "the mesh that names it")
+    axis = mesh.axis(settings.shard_axis)
+    if axis.size == 1:
+        return None
+    if n % axis.size:
+        _warn_slice_fallback(n, axis.size, where)
+        return None
+    return axis
 
 
 class RenderAux(NamedTuple):
@@ -393,18 +444,34 @@ def _kernel_compositing():
 def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                 scale_modifier: float, means, scales, rotations, opacities,
                 shs, view, proj, campos, bg, alive, row0: int,
-                composite_fwd):
+                composite_fwd, mesh=None):
     """Forward render; returns ((image, depth, RenderAux), (prep, pairs,
     color, dacc, *rest)), the second tuple being what the backward needs:
     ``rest`` is what ``composite_fwd`` returns past its four outputs (the
     checkpoints of ``cuda_rasterize.composite_forward_checkpointed``)."""
-    if settings.shard_axis is not None:
-        raise NotImplementedError("the sharded render is not ported yet")
-    prep = preprocess(means, scales, rotations, opacities, shs,
-                      view, proj, campos, settings.width, settings.height,
-                      tan_fovx, tan_fovy, settings.grid_x, settings.grid_y,
-                      settings.sh_degree, scale_modifier=scale_modifier,
-                      alive=alive, tight_radius=settings.tight_radius)
+    def _preprocess(ms, sc, rt, op, sh, al):
+        return preprocess(ms, sc, rt, op, sh, view, proj, campos,
+                          settings.width, settings.height, tan_fovx,
+                          tan_fovy, settings.grid_x, settings.grid_y,
+                          settings.sh_degree, scale_modifier=scale_modifier,
+                          alive=al, tight_radius=settings.tight_radius)
+
+    axis = _slice_axis(settings, mesh, means.shape[0], "preprocess")
+    if axis is None:
+        prep = _preprocess(means, scales, rotations, opacities, shs, alive)
+    else:
+        # the preprocess is elementwise per Gaussian: each rank runs its
+        # slice and all-gathers the outputs
+        from gstpu_torch.parallel import collectives
+        nl = means.shape[0] // axis.size
+        i0 = axis.index * nl
+
+        def sl(x):
+            return None if x is None else x[i0:i0 + nl]
+
+        prep_local = _preprocess(sl(means), sl(scales), sl(rotations),
+                                 sl(opacities), sl(shs), sl(alive))
+        prep = PreprocessOut(*collectives.all_gather_many(prep_local, axis))
     rect_band, tiles_band = clip_rect_to_band(prep.rect, prep.tiles_touched,
                                               row0, settings.band_rows,
                                               settings.row_stride)
@@ -432,18 +499,20 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
 
 def render_forward(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                    scale_modifier: float, means, scales, rotations, opacities,
-                   shs, view, proj, campos, bg, alive=None, row0: int = 0):
+                   shs, view, proj, campos, bg, alive=None, row0: int = 0,
+                   mesh=None):
     """Forward render without autograd: returns (image (H,W,3), depth (H,W),
     RenderAux), the forward of ``render``.
 
     Compositing runs the CUDA kernel for tensors on a CUDA device (without
     checkpoints: no backward follows) and the plain version for tensors on
-    the CPU.
+    the CPU.  ``mesh`` resolves ``settings.shard_axis``.
     """
     from gstpu_torch.ops import cuda_rasterize
     return _render_fwd(settings, tan_fovx, tan_fovy, scale_modifier, means,
                        scales, rotations, opacities, shs, view, proj, campos,
-                       bg, alive, row0, cuda_rasterize.composite_forward)[0]
+                       bg, alive, row0, cuda_rasterize.composite_forward,
+                       mesh)[0]
 
 
 _N_PREP = len(PreprocessOut._fields)
@@ -458,14 +527,14 @@ class _Render(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, settings, tan_fovx, tan_fovy, scale_modifier, row0,
-                compositing, means, scales, rotations, opacities, shs, view,
-                proj, campos, bg, alive):
+                compositing, mesh, means, scales, rotations, opacities, shs,
+                view, proj, campos, bg, alive):
         (image, depth, aux), (prep, pairs, color, dacc, *rest) = _render_fwd(
             settings, tan_fovx, tan_fovy, scale_modifier, means, scales,
             rotations, opacities, shs, view, proj, campos, bg, alive, row0,
-            compositing[0])
+            compositing[0], mesh)
         ctx.static = (settings, tan_fovx, tan_fovy, scale_modifier, row0,
-                      compositing[1])
+                      compositing[1], mesh)
         # K1's checkpoints are the kernels' state, not autograd inputs
         ctx.checkpoints = rest[0] if rest else None
         ctx.save_for_backward(*prep, *pairs, color, dacc, aux.final_t, means,
@@ -476,7 +545,7 @@ class _Render(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_image, ct_depth, *_aux_cotangents):
         (settings, tan_fovx, tan_fovy, scale_modifier, row0,
-         composite_bwd) = ctx.static
+         composite_bwd, mesh) = ctx.static
         checkpoints = ({} if ctx.checkpoints is None
                        else {"checkpoints": ctx.checkpoints})
         saved = ctx.saved_tensors
@@ -495,36 +564,63 @@ class _Render(torch.autograd.Function):
 
         focal_x = settings.width / (2.0 * tan_fovx)
         focal_y = settings.height / (2.0 * tan_fovy)
+        n = means.shape[0]
+        chain = (means, prep.cov3d, prep.radii, shs, prep.clamped, scales,
+                 rotations, prep.depth)
+        axis = _slice_axis(settings, mesh, n, "adjoint")
+        if axis is not None:
+            # the chain is per Gaussian and linear in the cotangents: sum
+            # the bands' cotangents first (a Gaussian's pairs span several
+            # bands), then chain this rank's slice alone
+            from gstpu_torch.parallel import collectives
+            nl = n // axis.size
+            i0 = axis.index * nl
+            chain = tuple(x[i0:i0 + nl] for x in chain)
+            d_conic, d_mean2d, d_color, d_invd = \
+                collectives.reduce_scatter_many(
+                    (d_conic, d_mean2d, d_color, d_invd), axis)
+        means_c, cov3d, radii, shs_c, clamped, scales_c, rots_c, depth = chain
         # preprocess adjoint chain: cov2d -> projection -> SH -> cov3d, with
         # dL/dmeans gathered from four sources
         dmean_cov, dcov3d = preprocess_bwd.cov2d_backward(
-            means, prep.cov3d, prep.radii, focal_x, focal_y, tan_fovx,
+            means_c, cov3d, radii, focal_x, focal_y, tan_fovx,
             tan_fovy, view, d_conic, parity=settings.parity,
             translation_bias=settings.grad_bias_parity)
         dmean_proj = preprocess_bwd.projection_backward(
-            means, prep.radii, proj, d_mean2d)
+            means_c, radii, proj, d_mean2d)
         dsh, dmean_sh = preprocess_bwd.sh_backward(
-            means, shs, prep.radii, campos, prep.clamped, d_color,
+            means_c, shs_c, radii, campos, clamped, d_color,
             settings.sh_degree)
         dscale, drot = preprocess_bwd.cov3d_backward(
-            scales, rotations, prep.radii, scale_modifier, dcov3d,
+            scales_c, rots_c, radii, scale_modifier, dcov3d,
             parity=settings.parity)
         # depth chain: inv_depth = 1/t_z, t_z = [p,1] @ view (row vector), so
         # dL/dp_j += -inv_depth^2 * dL/dinv_depth * view[j, 2]
-        inv_depth = 1.0 / torch.where(prep.depth == 0.0, 1.0, prep.depth)
-        d_tz = -inv_depth * inv_depth * d_invd * (prep.radii > 0).to(
+        inv_depth = 1.0 / torch.where(depth == 0.0, 1.0, depth)
+        d_tz = -inv_depth * inv_depth * d_invd * (radii > 0).to(
             means.dtype)
         dmean_depth = d_tz[:, None] * view[None, :3, 2]
         dmean = dmean_cov + dmean_proj + dmean_sh + dmean_depth
-        # settings, tan_fovx, tan_fovy, scale_modifier, row0, compositing;
-        # the camera, background and alive mask are inputs, not parameters
-        return ((None,) * 6 + (dmean, dscale, drot, d_opac, dsh)
+        if axis is not None:
+            # back at full size, zero outside the slice: the reduce-scatter
+            # of the caller's all-gather sums the ranks and hands each its
+            # slice complete
+            def embed(x):
+                full = x.new_zeros((n,) + tuple(x.shape[1:]))
+                full[i0:i0 + nl] = x
+                return full
+
+            dmean, dscale, drot, dsh = map(embed, (dmean, dscale, drot, dsh))
+        # settings, tan_fovx, tan_fovy, scale_modifier, row0, compositing,
+        # mesh; the camera, background and alive mask are inputs, not
+        # parameters
+        return ((None,) * 7 + (dmean, dscale, drot, d_opac, dsh)
                 + (None,) * 5)
 
 
 def render(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
            scale_modifier: float, means, scales, rotations, opacities, shs,
-           view, proj, campos, bg, alive=None, row0: int = 0,
+           view, proj, campos, bg, alive=None, row0: int = 0, mesh=None,
            _compositing=None):
     """Differentiable render: returns (image (H,W,3), depth (H,W), aux).
 
@@ -533,13 +629,14 @@ def render(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     CUDA kernel K2 and its epilogue for CUDA tensors, from K1's checkpoints;
     the plain version for CPU tensors), then the preprocess adjoint chain with the reference's
     quirks under ``settings.parity``.  ``alive`` is an (N,) bool mask of
-    capacity padding.  ``_compositing``, a (composite_forward,
+    capacity padding.  ``mesh`` (a ``parallel.mesh.Mesh``) resolves
+    ``settings.shard_axis``.  ``_compositing``, a (composite_forward,
     composite_backward) pair in place of the kernel wrappers, is for checks
     that hold the kernels against their plain versions on the card.
     """
     out = _Render.apply(settings, float(tan_fovx), float(tan_fovy),
                         float(scale_modifier), int(row0),
-                        _compositing or _kernel_compositing(), means, scales,
-                        rotations, opacities, shs, view, proj, campos, bg,
-                        alive)
+                        _compositing or _kernel_compositing(), mesh, means,
+                        scales, rotations, opacities, shs, view, proj, campos,
+                        bg, alive)
     return out[0], out[1], RenderAux(*out[2:])

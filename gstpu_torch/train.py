@@ -2,18 +2,33 @@
 
     python -m gstpu_torch.train --dataset ./data/lego --output ./output
 
-The flags of the JAX package's ``train.py``, without ``--pallas`` (the
-device picks the kernels) and the multi-device flags; ``--save-interval``,
-``--densify-from-iter`` and ``--densification-interval`` set the schedule,
-and ``--device cpu`` runs the plain PyTorch path on the CPU (default: the
-CUDA card).
+The flags of the JAX package's ``train.py`` without ``--pallas`` (the
+device picks the kernels); ``--save-interval``, ``--densify-from-iter`` and
+``--densification-interval`` set the schedule, and ``--device cpu`` runs the
+plain PyTorch path on the CPU (default: the CUDA card).
+
+Several ranks: one process per rank, each started with the same flags and
+its own ``--process-id``, for example on one host
+
+    python -m gstpu_torch.train --n-model 2 --n-data 2 \
+        --coordinator 127.0.0.1:29500 --num-processes 4 --process-id $i
+
+for i = 0..3; ``--n-data * --n-model`` must equal ``--num-processes``.  The
+last line of standard output is a JSON summary of this rank's run.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import statistics
+
+import torch.distributed as dist
 
 from gstpu_torch.config import GSConfig
+from gstpu_torch.ops import cuda_rasterize
+from gstpu_torch.parallel import collectives
+from gstpu_torch.parallel.multihost import distributed_config, init_distributed
 from gstpu_torch.trainer import Trainer
 
 
@@ -48,6 +63,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(RenderSettings.pair_cull; on by default)")
     parser.add_argument("--resume", type=int, default=None,
                         help="resume from the state saved at this iteration")
+    parser.add_argument("--n-model", type=int, default=0,
+                        help="shard Gaussians/tiles over this many ranks "
+                             "(0 = single device)")
+    parser.add_argument("--n-data", type=int, default=1,
+                        help="camera-batch data parallelism (ranks used = "
+                             "n_model * n_data)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="multi-process: torch.distributed rendezvous "
+                             "address host:port (or GSTPU_COORDINATOR env); "
+                             "run one process per rank with matching "
+                             "--num-processes/--process-id")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="multi-process: total process count "
+                             "(GSTPU_NUM_PROCESSES env)")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="multi-process: this process's id "
+                             "(GSTPU_PROCESS_ID env)")
     parser.add_argument("--resolution", "-r", type=int, default=1,
                         help="train at 1/N of the capture resolution "
                              "(official 3DGS -r; FoV unchanged)")
@@ -108,15 +140,53 @@ def config_from_args(args: argparse.Namespace) -> GSConfig:
     return config
 
 
+def summary(trainer: Trainer, backend: str | None) -> dict:
+    """This rank's run: its place, the steps it took and their median time
+    (``Trainer.step_ms``: CUDA events on the card), this process's kernel
+    launches and the bytes its collectives handed to the backend, and the
+    model's digest after each densify event (under a mesh)."""
+    mesh = trainer.mesh
+    step_ms = trainer.step_ms()
+    return {"rank": mesh.rank if mesh else 0,
+            "mesh": mesh.shape if mesh else None, "backend": backend,
+            "device": str(trainer.device), "iteration": trainer.iteration,
+            "steps_run": trainer.steps_run,
+            "step_ms_median": (statistics.median(step_ms)
+                               if step_ms else None),
+            "kernel_launches": dict(cuda_rasterize.LAUNCHES),
+            "collective_bytes": dict(collectives.BYTES),
+            "densify_digests": trainer.densify_digests}
+
+
 def main(argv=None) -> Trainer:
-    """Parse ``argv`` (default: the command line), train, and return the
-    trainer."""
+    """Parse ``argv`` (default: the command line), train, print this rank's
+    ``summary`` as the last line, and return the trainer."""
     args = parse_args(argv)
-    trainer = Trainer(args.dataset, args.output, config_from_args(args),
-                      pair_cull=not args.no_cull, device=args.device)
-    if args.resume is not None:
-        trainer.restore(args.resume)
-    trainer.train()
+    config = distributed_config(args.coordinator, args.num_processes,
+                                args.process_id)
+    ranks = config[1] if config else 1
+    if args.n_model and args.n_model * args.n_data != ranks:
+        raise SystemExit(
+            f"--n-data {args.n_data} x --n-model {args.n_model} = "
+            f"{args.n_data * args.n_model} ranks, but {ranks} process(es) "
+            "(--num-processes): one process is one rank")
+    backend = init_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+    try:
+        mesh = None
+        if args.n_model:
+            from gstpu_torch.parallel import make_mesh
+            mesh = make_mesh(n_data=args.n_data, n_model=args.n_model)
+        trainer = Trainer(args.dataset, args.output, config_from_args(args),
+                          pair_cull=not args.no_cull, device=args.device,
+                          mesh=mesh)
+        if args.resume is not None:
+            trainer.restore(args.resume)
+        trainer.train()
+        print(json.dumps(summary(trainer, backend)), flush=True)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
     return trainer
 
 

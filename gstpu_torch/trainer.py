@@ -14,11 +14,23 @@ Port of ``gstpu/trainer.py``.
   ``loss.txt``, ``metrics.jsonl`` and a resumable state (``torch.save``).
 
 The device decides the compositing: K1 and K2 on a CUDA device, their plain
-versions on the CPU.  The multi-device mesh is not ported yet.
+versions on the CPU.
+
+With a ``mesh`` (``parallel.make_mesh``, one process per rank), every step
+is the sharded step of ``parallel/sharded.py``: the parameters and Adam
+moments split over ``model``, the tile rows banded over ``model``, a batch
+of ``n_data`` cameras per step summed over ``data``.  Every rank draws the
+same cameras and takes the same decisions (flush, rollback, refit, densify)
+from all-reduced losses and counts; a densify event gathers the model,
+runs on every rank with the same noise generator, checks that the ranks
+agree and shards the result again.  Rank 0 alone evaluates and writes the
+PLY, ``cameras.json``, ``loss.txt``, ``metrics.jsonl``, the debug images and
+the state; the others wait at a barrier.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,6 +52,8 @@ from gstpu_torch.ops.losses import combined_loss, depth_loss, psnr, ssim
 from gstpu_torch.ops.rasterize import render, render_forward
 from gstpu_torch.optim import (AdamState, adam_step, init_adam_state,
                                schedule_lrs)
+from gstpu_torch.parallel import collectives
+from gstpu_torch.parallel.multihost import shard_rows
 from gstpu_torch.render import resolve_device
 from gstpu_torch.utils.camera import save_cameras_json
 from gstpu_torch.utils.image import imwrite
@@ -141,23 +155,46 @@ def _clone_state(model: GaussianModel, adam: AdamState):
                       v={k: x.clone() for k, x in adam.v.items()}))
 
 
+def _model_digest(model: GaussianModel) -> int:
+    """An exact fingerprint of a model's bits (sums of each field's 32-bit
+    words, mixed), to compare the replicas of ranks."""
+    digest = 0
+    for f in dataclasses.fields(model):
+        x = getattr(model, f.name).detach().contiguous().reshape(-1)
+        words = x.view(torch.uint8)
+        words = torch.nn.functional.pad(words, (0, -len(words) % 4))
+        total = int(words.view(torch.int32).to(torch.int64).sum())
+        digest = (digest * 1_000_003 + total) % (1 << 61)
+    return digest
+
+
 class Trainer:
-    """3DGS training on one device (``device=None``: the CUDA card).
+    """3DGS training on one device (``device=None``: the CUDA card), or on a
+    (data, model) mesh of ranks (``mesh``; one process per rank, each on its
+    ``device``).
 
     ``dataset_path`` is a NeRF-synthetic dataset (``transforms_*.json``) or
     a COLMAP capture (``sparse/0`` and ``images/``), which also seeds the
     Gaussians from its points unless ``config.init_from_points`` is off.
     ``GSTPU_NO_CULL=1`` turns the exact per-tile pair cull off, as
     ``pair_cull=False`` does.
+
+    Under a mesh ``self.model`` and ``self.adam`` hold this rank's shard
+    (``n_alive`` is the whole model's); ``full_model()`` gathers it.
     """
 
     _round_capacity = staticmethod(round_capacity)
 
     def __init__(self, dataset_path: str, output_path: str,
                  config: Optional[GSConfig] = None, pair_cull: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         self.config = cfg = config or GSConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_model = mesh.n_model if mesh is not None else 1
+        self.n_data = mesh.n_data if mesh is not None else 1
+        # rank 0 evaluates and writes; the others wait at a barrier
+        self.is_writer = mesh is None or mesh.rank == 0
         self.pair_cull = pair_cull and os.environ.get(
             "GSTPU_NO_CULL", "0") != "1"
         self.output_path = Path(output_path)
@@ -197,17 +234,30 @@ class Trainer:
         sfm = None
         if cfg.init_from_points and hasattr(self.train_data, "points3d"):
             sfm = self.train_data.points3d()
+        n_init = len(sfm[0]) if sfm is not None else cfg.num_points
+        cap = None
+        if self.n_model > 1:  # the capacity splits evenly over 'model'
+            cap = int(n_init * cfg.capacity_headroom)
+            cap = -(-cap // self.n_model) * self.n_model
         if sfm is not None:
-            self.model = init_model_from_points(cfg, *sfm, device=self.device)
+            model = init_model_from_points(cfg, *sfm, capacity=cap,
+                                           device=self.device)
         else:
-            self.model = init_model(torch.Generator().manual_seed(cfg.seed),
-                                    cfg, device=self.device)
+            model = init_model(torch.Generator().manual_seed(cfg.seed), cfg,
+                               capacity=cap, device=self.device)
+        self.model = self._shard_model(model)
         self.adam = init_adam_state(self.model.param_dict())
         self.iteration = 0
         self.losses: list[float] = []
         self.flushes = 0  # deferred fetches of losses and pair counts
+        self.steps_run = 0  # steps taken, replays included
+        # per step: a CUDA event pair around it on the card, else its
+        # host-clock ms (``step_ms``)
+        self._step_times: list = []
+        # (iteration, digest) of the model after each densify event
+        self.densify_digests: list[tuple[int, int]] = []
         self._pair_capacity = self._round_capacity(
-            self.model.capacity * cfg.pair_capacity_per_gaussian)
+            model.capacity * cfg.pair_capacity_per_gaussian)
         # the post-cull capacity starts equal to the pre-cull one; the first
         # flush fits it to the measured kept pairs
         self._kept_capacity = self._pair_capacity
@@ -258,6 +308,35 @@ class Trainer:
         self._tanfy = [float(c["tan_fovy"]) for c in cams]
 
     # ------------------------------------------------------------------
+    def _shard_model(self, model: GaussianModel) -> GaussianModel:
+        """This rank's slice of a whole model over 'model' (n_alive kept);
+        the model itself without a mesh."""
+        if self.mesh is None:
+            return model
+        return model.replace(**{
+            f.name: shard_rows(getattr(model, f.name), self.mesh)
+            for f in dataclasses.fields(model) if f.name != "n_alive"})
+
+    def _gather(self, tensors: list) -> list:
+        """The whole of each rank's row-sharded tensors (all ranks call)."""
+        if self.mesh is None:
+            return list(tensors)
+        return collectives.all_gather_many(tensors, self.mesh.model)
+
+    def full_model(self) -> GaussianModel:
+        """The whole model; under a mesh every rank must call it."""
+        if self.mesh is None:
+            return self.model
+        names = [f.name for f in dataclasses.fields(self.model)
+                 if f.name != "n_alive"]
+        full = self._gather([getattr(self.model, k) for k in names])
+        return self.model.replace(**dict(zip(names, full)))
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and torch.distributed.is_initialized():
+            torch.distributed.barrier()
+
+    # ------------------------------------------------------------------
     def _scene_extent(self) -> float:
         """Radius of the train cameras' bounding sphere, at least 1."""
         centers = np.stack([c["camera_center"]
@@ -278,6 +357,8 @@ class Trainer:
                 and iteration % cfg.densification_interval == 0)
 
     def _log(self, record: Dict[str, Any]) -> None:
+        if not self.is_writer:
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -298,13 +379,16 @@ class Trainer:
 
     def _render_full(self, model: GaussianModel, view, proj, campos,
                      tan_fovx=None, tan_fovy=None):
-        """Full-frame render whose capacities regrow until no pair
-        overflows: an eval camera can need more pairs than any train
-        camera, and eval images and PSNR must not drop tiles."""
+        """Full-frame render of the whole ``model`` on this rank, whose
+        capacities regrow until no pair overflows: an eval camera can need
+        more pairs than any train camera, and eval images and PSNR must not
+        drop tiles.  Under a mesh the training capacities fit one band,
+        about 1/n_model of a frame, so the eval ones start n_model times
+        larger."""
         self._eval_pair_capacity = max(self._eval_pair_capacity,
-                                       self._pair_capacity)
+                                       self._pair_capacity * self.n_model)
         self._eval_kept_capacity = max(self._eval_kept_capacity,
-                                       self._kept_capacity)
+                                       self._kept_capacity * self.n_model)
         for _ in range(4):
             pair_cap = self._round_capacity(self._eval_pair_capacity)
             settings = dataclasses.replace(
@@ -336,15 +420,19 @@ class Trainer:
         cfg = self.config
         it = self.iteration
         if self.densify_due(it):
-            before = self.model
+            # under a mesh: gather, mutate on every rank alike, re-shard
+            before = self.full_model()
+            pos_grads = self._gather([pos_grads])[0]
             model, stats = densify_mod.densify_and_prune(
                 before, pos_grads, float(self.scene_extent), cfg,
                 self.generator)
             overflow = int(stats.overflow)
             if overflow > 0:
-                # grow the capacity to a power of two and redo the event
+                # grow the capacity to a power of two (a multiple of
+                # n_model) and redo the event
                 new_cap = int(2 ** np.ceil(np.log2(
                     int(before.n_alive) + overflow + before.capacity)))
+                new_cap = -(-new_cap // self.n_model) * self.n_model
                 grown = grow_capacity(before, new_cap)
                 pos_grads = torch.cat([pos_grads, pos_grads.new_zeros(
                     (new_cap - before.capacity, 3))])
@@ -353,7 +441,9 @@ class Trainer:
                     self.generator)
                 self._log({"event": "capacity_grow", "iteration": it,
                            "capacity": new_cap, "overflow": overflow})
-            self.model = model
+            if self.mesh is not None:
+                self._check_replicas(it, model)
+            self.model = self._shard_model(model)
             counts = [int(x) for x in torch.stack(
                 [stats.changed.to(torch.int32), stats.n_cloned, stats.n_split,
                  stats.n_pruned, stats.n_alive]).cpu()]
@@ -368,6 +458,95 @@ class Trainer:
             self.model = densify_mod.reset_opacities(
                 self.model, cfg.opacity_reset_value, cfg.parameterization)
             self._log({"event": "opacity_reset", "iteration": it})
+
+    def _check_replicas(self, iteration: int, model: GaussianModel) -> None:
+        """Raise unless every rank holds the same ``model`` (the ranks'
+        densify events must agree, or their shards would not fit
+        together)."""
+        digest = _model_digest(model)
+        self.densify_digests.append((iteration, digest))
+        mine = torch.tensor([digest, -digest], dtype=torch.int64,
+                            device=self.device)
+        high, low = (int(x) for x in collectives.all_reduce(mine, None,
+                                                            op="max"))
+        if (high, -low) != (digest, digest):
+            raise RuntimeError(f"the ranks' models differ after the densify "
+                               f"event at {iteration}: digests from {-low} "
+                               f"to {high}")
+
+    def _step(self, settings: RenderSettings, rng: np.random.Generator,
+              it: int):
+        """One step: (loss, pos_grads, counts); draws the step's camera(s)
+        from ``rng``.  Under a mesh, ``n_data`` cameras and the sharded
+        step, else ``train_step``."""
+        cfg = self.config
+        if self.mesh is None:
+            cam_idx = int(rng.integers(0, len(self.train_data)))
+            target = self._target(cam_idx)
+            td = self._depths[cam_idx] if self._depths is not None else None
+            dm = (self._depth_masks[cam_idx]
+                  if self._depth_masks is not None else None)
+            (self.model, self.adam, loss, pos_grads, counts,
+             _) = train_step(settings, cfg, self.model, self.adam,
+                             self._views[cam_idx], self._projs[cam_idx],
+                             self._camposes[cam_idx], self._tanfx[cam_idx],
+                             self._tanfy[cam_idx], target, it,
+                             target_depth=td, depth_mask=dm)
+            return loss, pos_grads, counts
+        from gstpu_torch.parallel.sharded import (sharded_loss_and_grads,
+                                                  target_band)
+        # the same draw on every rank; rank (d, m) renders camera idxs[d]
+        # and keeps band m of its targets
+        idxs = rng.integers(0, len(self.train_data), size=self.n_data)
+        d, m = self.mesh.coords
+        cam = int(idxs[d])
+
+        def band(x):
+            return None if x is None else target_band(x, settings,
+                                                      self.n_model, m)
+
+        params, alive = self.model.param_dict(), self.model.alive
+        loss, grads, counts = sharded_loss_and_grads(
+            settings, cfg, self.mesh, params, alive, self._views[cam],
+            self._projs[cam], self._camposes[cam], self._tanfx[cam],
+            self._tanfy[cam], band(self._target(cam)),
+            band(self._depths[cam] if self._depths is not None else None),
+            band(self._depth_masks[cam]
+                 if self._depth_masks is not None else None))
+        params, self.adam = adam_step(params, grads, self.adam,
+                                      schedule_lrs(cfg, it), it, cfg,
+                                      alive=alive)
+        self.model = self.model.replace(**params)
+        return loss, grads["positions"], counts
+
+    @contextlib.contextmanager
+    def _timed_step(self):
+        """Time one step without waiting for it: CUDA events on the card
+        (read by ``step_ms``), the host clock on the CPU."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            yield
+            self._step_times.append((time.perf_counter() - t0) * 1e3)
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        self._step_times.append((start, end))
+
+    def step_ms(self) -> list[float]:
+        """Each step's time in ms, replays included; on the card the time
+        on the device between the step's first and last work, read after
+        a synchronize."""
+        if self.device.type != "cuda":
+            return list(self._step_times)
+        torch.cuda.synchronize(self.device)
+        return [a.elapsed_time(b) for a, b in self._step_times]
+
+    def _target(self, idx: int) -> torch.Tensor:
+        if self._preload:
+            return self._targets[idx]
+        return torch.from_numpy(self.train_data.image(idx)).to(self.device)
 
     # ------------------------------------------------------------------
     def train(self, num_iterations: Optional[int] = None,
@@ -475,21 +654,9 @@ class Trainer:
             if not pending:
                 take_snap()  # window start: the rollback point
             settings = self._settings(it)
-            cam_idx = int(rng.integers(0, len(self.train_data)))
-            if self._preload:
-                target = self._targets[cam_idx]
-            else:
-                target = torch.from_numpy(
-                    self.train_data.image(cam_idx)).to(self.device)
-            td = self._depths[cam_idx] if self._depths is not None else None
-            dm = (self._depth_masks[cam_idx]
-                  if self._depth_masks is not None else None)
-            (self.model, self.adam, loss, pos_grads, counts,
-             _) = train_step(settings, cfg, self.model, self.adam,
-                             self._views[cam_idx], self._projs[cam_idx],
-                             self._camposes[cam_idx], self._tanfx[cam_idx],
-                             self._tanfy[cam_idx], target, it,
-                             target_depth=td, depth_mask=dm)
+            with self._timed_step():
+                loss, pos_grads, counts = self._step(settings, rng, it)
+            self.steps_run += 1
             pending.append((it, loss, counts))
 
             if len(pending) >= flush_interval or self.densify_due(it):
@@ -538,9 +705,13 @@ class Trainer:
         data = data if data is not None else self.val_data
         vals, ssims = [], []
         n_views = len(data) if max_views is None else min(max_views, len(data))
+        model = self.full_model()
+        if not self.is_writer:
+            self._barrier()
+            return float("nan")
         for idx in range(n_views):
             cam = data.camera(idx)
-            img, _, _ = self._render_full(self.model,
+            img, _, _ = self._render_full(model,
                                           *self._camera_tensors(cam),
                                           cam["tan_fovx"], cam["tan_fovy"])
             target = torch.from_numpy(data.image(idx)).to(self.device)
@@ -550,18 +721,25 @@ class Trainer:
         mean_psnr = float(np.mean(vals))
         self._log({"event": tag, "iteration": iteration, "psnr": mean_psnr,
                    "ssim": float(np.mean(ssims)), "views": len(vals)})
+        self._barrier()
         return mean_psnr
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, iteration: int,
                         save_images: bool = True) -> None:
         """The PLY (the reference's layout), ``cameras.json`` (once),
-        ``loss.txt``, the debug images and the resumable state."""
+        ``loss.txt``, the debug images and the resumable state.  Under a
+        mesh every rank gathers and rank 0 writes."""
+        model = self.full_model()
+        adam = self._full_adam()
+        if not self.is_writer:
+            self._barrier()
+            return
         ckpt_dir = self.output_path / "point_cloud" / f"iteration_{iteration}"
         params_np = {k: v.cpu().numpy()
-                     for k, v in self.model.param_dict().items()}
+                     for k, v in model.param_dict().items()}
         save_ply(params_np, ckpt_dir / "point_cloud.ply",
-                 int(self.model.n_alive),
+                 int(model.n_alive),
                  parameterization=self.config.parameterization)
         cams_json = self.output_path / "cameras.json"
         if not cams_json.exists():  # the cameras do not change
@@ -570,10 +748,22 @@ class Trainer:
         with open(self.output_path / "loss.txt", "w") as f:
             f.writelines(f"{loss}\n" for loss in self.losses)
         if save_images:
-            self._save_debug_images(iteration)
-        self._save_state(iteration)
+            self._save_debug_images(iteration, model)
+        self._save_state(iteration, model, adam)
+        self._barrier()
 
-    def _save_debug_images(self, iteration: int) -> None:
+    def _full_adam(self) -> AdamState:
+        """The whole Adam state; under a mesh every rank must call it."""
+        if self.mesh is None:
+            return self.adam
+        keys = list(self.adam.m)
+        full = self._gather([self.adam.m[k] for k in keys]
+                            + [self.adam.v[k] for k in keys])
+        return AdamState(m=dict(zip(keys, full[:len(keys)])),
+                         v=dict(zip(keys, full[len(keys):])))
+
+    def _save_debug_images(self, iteration: int,
+                           model: GaussianModel) -> None:
         """The reference's debug read-outs: the render and target PNGs of
         train view 0, pair count, median radius, opacity spread and visible
         count into metrics.jsonl, a depth-coloured projection scatter and
@@ -584,8 +774,7 @@ class Trainer:
         except ImportError:
             return
         cam = self.train_data.camera(0)
-        img, _, aux = self._render_full(self.model,
-                                        *self._camera_tensors(cam),
+        img, _, aux = self._render_full(model, *self._camera_tensors(cam),
                                         cam["tan_fovx"], cam["tan_fovy"])
         arr = np.clip(img.cpu().numpy(), 0.0, 1.0)
         imwrite(self.output_path / f"render_{iteration:06d}.png",
@@ -596,8 +785,8 @@ class Trainer:
 
         radii = aux.radii.cpu().numpy()
         xy = aux.xy.cpu().numpy()
-        alive = self.model.alive.cpu().numpy()
-        opac = self.model.opacities.cpu().numpy()[alive]
+        alive = model.alive.cpu().numpy()
+        opac = model.opacities.cpu().numpy()[alive]
         if self.config.parameterization == "activated":
             opac = 1.0 / (1.0 + np.exp(-opac))  # render-space alpha
         vis = (radii > 0) & alive
@@ -622,7 +811,7 @@ class Trainer:
             return
         if on_screen.any():
             view = np.asarray(cam["world_to_camera"], np.float32)
-            pos = self.model.positions.cpu().numpy()
+            pos = model.positions.cpu().numpy()
             z = pos @ view[:3, 2] + view[3, 2]
             fig, ax = plt.subplots(figsize=(6, 6))
             sc = ax.scatter(xy[on_screen, 0], xy[on_screen, 1], s=4,
@@ -648,16 +837,17 @@ class Trainer:
     def _state_path(self, iteration: int) -> Path:
         return self.output_path / "state" / f"{iteration}.pt"
 
-    def _save_state(self, iteration: int) -> None:
-        """The model, the Adam moments, the iteration, the noise
+    def _save_state(self, iteration: int, model: GaussianModel,
+                    adam: AdamState) -> None:
+        """The (whole) model, the Adam moments, the iteration, the noise
         generator's state and the losses, for ``restore``."""
         path = self._state_path(iteration)
         path.parent.mkdir(parents=True, exist_ok=True)
-        model = {f.name: getattr(self.model, f.name).cpu()
-                 for f in dataclasses.fields(self.model)}
-        torch.save({"model": model,
-                    "adam_m": {k: x.cpu() for k, x in self.adam.m.items()},
-                    "adam_v": {k: x.cpu() for k, x in self.adam.v.items()},
+        fields = {f.name: getattr(model, f.name).cpu()
+                  for f in dataclasses.fields(model)}
+        torch.save({"model": fields,
+                    "adam_m": {k: x.cpu() for k, x in adam.m.items()},
+                    "adam_v": {k: x.cpu() for k, x in adam.v.items()},
                     "iteration": iteration,
                     "generator": self.generator.get_state(),
                     "losses": torch.tensor(self.losses,
@@ -665,15 +855,22 @@ class Trainer:
 
     def restore(self, iteration: int) -> None:
         """Resume from the state saved at ``iteration``: training goes on
-        at ``iteration + 1``."""
+        at ``iteration + 1``.  Under a mesh every rank reads the state and
+        keeps its shard."""
         state = torch.load(self._state_path(iteration), map_location="cpu",
                            weights_only=True)
         dev = self.device
-        self.model = GaussianModel(**{k: x.to(dev)
+
+        def shard(x):
+            x = x.to(dev)
+            return x if self.mesh is None or x.dim() == 0 \
+                else shard_rows(x, self.mesh)
+
+        self.model = GaussianModel(**{k: shard(x)
                                       for k, x in state["model"].items()})
         self.adam = AdamState(
-            m={k: x.to(dev) for k, x in state["adam_m"].items()},
-            v={k: x.to(dev) for k, x in state["adam_v"].items()})
+            m={k: shard(x) for k, x in state["adam_m"].items()},
+            v={k: shard(x) for k, x in state["adam_v"].items()})
         self.iteration = int(state["iteration"]) + 1
         self.generator.set_state(state["generator"])
         self.losses = state["losses"].tolist()

@@ -9,7 +9,9 @@ flip-tolerant against the plain version on the card; K1's checkpoints
 K1 on cut tile counts) and K2 from them (``chip_smoke.k2_segmented_checks``:
 against K2 from T = 1 within ``K2_SEGMENT_ROW_TOL`` of each field's largest
 magnitude, two runs bit-identical, flip-tolerant against the plain version),
-on the gate and on a row band; the wrappers' checks of work lists and
+on the gate and on a row band; K1 with checkpoints and K2 from them on the
+round-robin bands of the sharded path (tile rows 1::2, 1::4 and 3::4) against
+the plain versions; the wrappers' checks of work lists and
 checkpoint buffers; K3 within
 ``chip_smoke.K3_FWD_TOL`` (forward, absolute) and ``K3_BWD_REL_TOL``
 (backward, over each row's largest magnitude), every tile bit-identical,
@@ -28,7 +30,8 @@ import pytest
 import torch
 
 from chip_smoke import (GRAD_NAMES, K3_BWD_REL_TOL, K3_FWD_TOL, check_grads,
-                        compare, k1_checkpoint_checks, k2_segmented_checks)
+                        compare, k1_checkpoint_checks, k2_segmented_checks,
+                        kernel_vs_plain)
 from gstpu_torch import convert, scenes, sol_model
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize
@@ -165,20 +168,23 @@ def test_backward_kernel_on_a_row_band_matches_plain_cuda():
     check_grads("row band", got, want, flip_tolerant=True)
 
 
-def _gate_band(device):
-    """The gate's Gaussians binned to tile rows 1, 3, 5, 7, 9 (row0 1, row
-    stride 2), its K1 outputs and seeded cotangents."""
+def _gate_band(device, row0=1, stride=2):
+    """The gate's Gaussians binned to the round-robin band of tile rows
+    ``row0 + k * stride`` (default 1, 3, 5, 7, 9; as the sharded path bands
+    the 10 rows, with rows past the grid empty), its K1 outputs and seeded
+    cotangents."""
     g = np.load(scenes.GATE_NPZ)
     settings = RenderSettings(width=160, height=160, pair_capacity=1 << 16,
-                              tile_rows=5, row_stride=2)
+                              tile_rows=-(-10 // stride), row_stride=stride)
     prep = convert.prep_from_numpy(g, device)
     rect, tiles = rasterize.clip_rect_to_band(prep.rect, prep.tiles_touched,
-                                              1, settings.band_rows, 2)
+                                              row0, settings.band_rows,
+                                              stride)
     pairs = build_pairs(tiles, rect, prep.depth, settings.grid_x,
-                        settings.band_tiles, settings.pair_capacity, row0=1,
-                        row_stride=2)
+                        settings.band_tiles, settings.pair_capacity,
+                        row0=row0, row_stride=stride)
     color, dacc, final_t, _ = cuda_rasterize.composite_forward(
-        prep, pairs, settings, row0=1)
+        prep, pairs, settings, row0=row0)
     rng = np.random.default_rng(5)
     t = settings.band_tiles
     inputs = dict(color_pre_bg=color, final_t=final_t, depth_acc=dacc,
@@ -186,7 +192,7 @@ def _gate_band(device):
                                        dtype=torch.float32, device=device),
                   dl_ddepth=torch.tensor(rng.normal(size=(t, 256)),
                                          dtype=torch.float32, device=device),
-                  bg=torch.tensor([0.2, 0.1, 0.4], device=device), row0=1)
+                  bg=torch.tensor([0.2, 0.1, 0.4], device=device), row0=row0)
     return settings, prep, pairs, inputs
 
 
@@ -229,6 +235,22 @@ def test_segmented_backward_kernel_matches_whole_tiles_and_plain_cuda(case):
     assert n > int((pairs.tile_count > 0).sum())      # a tile is split
     assert torch.equal(ckpt.work.items[:n], cuda_rasterize.work_items(
         ckpt.work, pairs.tile_count)[:n])
+
+
+@pytest.mark.parametrize("row0,stride", [(1, 2), (1, 4), (3, 4)])
+def test_checkpointed_kernels_on_a_round_robin_band_cuda(row0, stride):
+    """The sharded path's shapes: K1 with checkpoints and K2 from them on a
+    band of tile rows ``row0 + k * stride``, against their plain versions
+    (``chip_smoke.kernel_vs_plain``, ``k1_checkpoint_checks``,
+    ``k2_segmented_checks``)."""
+    settings, prep, pairs, inputs = _gate_band(_cuda(), row0, stride)
+    assert int(pairs.tile_count.max()) > cuda_rasterize.SEGMENT
+    kernel_vs_plain(f"band {row0}::{stride}", prep, pairs, settings, row0)
+    res = k1_checkpoint_checks(f"band {row0}::{stride}", prep, pairs,
+                               settings, row0)
+    assert res["ok"] and res["checkpoints_compared"] > 0
+    k2_segmented_checks(f"band {row0}::{stride}", prep, pairs, settings,
+                        inputs)
 
 
 def test_backward_kernel_wrapper_rejects_bad_checkpoints_cuda():

@@ -31,7 +31,10 @@ def test_port_imports_no_jax_flax_or_gstpu():
                  "optim", "scheduler", "models.gaussians", "trainer",
                  "ops.cuda_build", "data.nerf", "ops.kernel_check",
                  "sol_model", "bench", "bench_suite", "densify",
-                 "data.colmap", "train", "utils.image"):
+                 "data.colmap", "train", "utils.image", "eval_model",
+                 "render_turntable", "parallel", "parallel.mesh",
+                 "parallel.multihost", "parallel.collectives",
+                 "parallel.sharded"):
         assert f"gstpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -52,7 +55,10 @@ def test_sources_name_no_jax_flax_or_gstpu_import():
         ROOT / "tests" / "test_torch_cuda.py"]
     for name in ("sol_model.py", "bench.py", "bench_suite.py",
                  "ops/kernel_check.py", "ops/cuda_build.py", "data/nerf.py",
-                 "densify.py", "data/colmap.py", "train.py", "utils/image.py"):
+                 "densify.py", "data/colmap.py", "train.py", "utils/image.py",
+                 "eval_model.py", "render_turntable.py", "parallel/mesh.py",
+                 "parallel/multihost.py", "parallel/collectives.py",
+                 "parallel/sharded.py"):
         assert ROOT / "gstpu_torch" / name in files, name
     assert len(files) > 10
     for path in files:
