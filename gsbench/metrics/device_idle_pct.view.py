@@ -1,0 +1,8 @@
+"""Share of the traced rendering sub-window in which no operation ran on
+the device."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.idle_pct(run, "view")

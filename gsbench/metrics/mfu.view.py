@@ -1,0 +1,8 @@
+"""The whole frame's operations at the float32 peak, as a share of the
+traced sub-window."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.mfu(run, "view")
