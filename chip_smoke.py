@@ -42,10 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    trainer's camera order over 8 orbit views whose targets are the port's
    renders of the unperturbed Lego; the launch counts are zeroed just
    before and read just after (one K1 and one K2 launch per step), with the
-   CTAs each launch started (``CTAS``); K2 runs from the checkpoints K1
-   returned (recorded as the render receives them) with more work items
-   than tiles, no step overflows, loss and gradients are finite, and the
-   L1 loss on a held-out orbit view falls;
+   CTAs each launch started (``tracing.COUNTERS``); K2 runs from the
+   checkpoints K1 returned (recorded as the render receives them) with
+   more work items than tiles, no step overflows, loss and gradients are
+   finite, and the L1 loss on a held-out orbit view falls;
 7. one step with K1 + K2 against the same step with the plain versions on
    the card, in the raw/L1 and the activated/SSIM configurations;
 8. training times with CUDA events, K2's bare time from checkpoints and
@@ -177,6 +177,7 @@ from gstpu_torch.optim import adam_step, init_adam_state, schedule_lrs
 from gstpu_torch.render import default_pair_capacity, render_gaussians
 from gstpu_torch.trainer import (loss_and_grads, round_capacity,
                                  train_settings, train_step)
+from gstpu_torch.utils import tracing
 from gstpu_torch.utils.image import imwrite
 
 SIZE = 800
@@ -285,6 +286,8 @@ PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
 # launches each: {wrapper file: library names}
 PARENT_WRAPPERS = {"cuda_rasterize.py": ("rasterize_fwd", "rasterize_bwd"),
                    "sol_model.py": ("sol_compositing",)}
+# K1's and K2's counters in the port's registry: {kernel: key prefix}
+KERNEL_COUNTERS = {"rasterize_fwd": "k1", "rasterize_bwd": "k2"}
 
 
 def log(**kw) -> None:
@@ -557,13 +560,18 @@ def load_wrapper(path: Path, libs: dict):
     ``sol_model.py``), loaded under its own name with a ``cuda_build``
     whose ``library(name)`` returns ``libs[name]``; its ``_library`` has set
     each library's argument types, the module's own.  ``_library`` takes
-    the library's name, or nothing where the module wraps one library."""
+    the library's name, or nothing where the module wraps one library.  A
+    module that counts into the port's ``tracing.COUNTERS`` gets counters
+    of its own, so its launches do not count as this tree's."""
     spec = importlib.util.spec_from_file_location(
         f"previous_{Path(path).stem}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     module.cuda_build = SimpleNamespace(**{**vars(cuda_build),
                                            "library": libs.__getitem__})
+    if hasattr(module, "tracing"):
+        module.tracing = SimpleNamespace(**{**vars(tracing),
+                                            "COUNTERS": tracing.Counters()})
     if inspect.signature(module._library).parameters:
         for name in libs:
             module._library(name)
@@ -587,7 +595,7 @@ class PreviousKernels:
     depends on those interfaces.  ``module`` is the loaded
     ``cuda_rasterize`` (``composite_forward``, ``backward_rows``,
     ``composite_backward``), ``sol`` the loaded ``sol_model``
-    (``sol_compositing``); their launches go to their own ``LAUNCHES``, not
+    (``sol_compositing``); their launches go to counters of their own, not
     to this tree's.  ``libs`` maps each kernel's name to its library,
     ``paths`` to the library's file."""
 
@@ -804,18 +812,15 @@ def phase_main_path(params, size: int, device, bg) -> int:
     views.append(("orbit theta=0.0000 tight_radius+pair_cull", cams[0], cull,
                   lambda: render_cull_view(params, cams[0], cull, bg)))
 
-    launches = cuda_rasterize.LAUNCHES
-    torch.cuda.synchronize()
-    for k in launches:
-        launches[k] = 0
+    zero_launches()
     renders = []
     for name, cam, settings, fn in views:
-        before = launches["rasterize_fwd"]
+        before = launch_counts()["rasterize_fwd"]
         out = fn()
         renders.append((name, cam, settings, out,
-                        launches["rasterize_fwd"] - before))
+                        launch_counts()["rasterize_fwd"] - before))
     torch.cuda.synchronize()
-    counts = dict(launches)
+    counts = launch_counts()
     log(path="render", launches=counts)
 
     for name, cam, settings, (image, depth, aux), n_launch in renders:
@@ -1147,30 +1152,28 @@ def phase_train(run: TrainRun) -> dict:
         kept_capacity=run.settings.kept_capacity, steps=TRAIN_STEPS,
         views=TRAIN_VIEWS)
     before = run.held_out_loss()
-    launches, ctas = cuda_rasterize.LAUNCHES, cuda_rasterize.CTAS
-    torch.cuda.synchronize()
-    for k in launches:
-        launches[k] = ctas[k] = 0
+    zero_launches()
     losses, counts, views = [], [], []
     with recording_checkpoints() as checkpoints:
         for _ in range(TRAIN_STEPS):
             i = run.next_view()
             views.append(i)
-            was = dict(launches)
+            was = launch_counts()
             (run.model, run.adam, loss, grad_pos, cnt,
              run.iteration) = train_step(run.settings, run.cfg, run.model,
                                          run.adam, *run.view_args(i),
                                          run.iteration)
-            if any(launches[k] - was[k] != 1 for k in launches):
+            now = launch_counts()
+            if any(now[k] - was[k] != 1 for k in now):
                 raise RuntimeError(f"step {run.iteration}: launches {was} -> "
-                                   f"{dict(launches)}, not one each")
+                                   f"{now}, not one each")
             losses.append(loss)
             counts.append(cnt)
             if not bool(torch.isfinite(grad_pos).all()):
                 raise RuntimeError(f"step {run.iteration}: non-finite "
                                    "position gradient")
     torch.cuda.synchronize()
-    got, got_ctas = dict(launches), dict(ctas)
+    got, got_ctas = launch_counts(), launch_counts("ctas")
     # K2's work: the (tile, segment) items that K1 wrote beside its
     # checkpoints, not whole tiles
     if len(checkpoints) != TRAIN_STEPS or None in checkpoints:
@@ -1544,13 +1547,10 @@ def phase_bench(device, sol: dict) -> None:
     headline iteration against the same with the plain compositing; the
     bench suite."""
     log(phase=11)
-    launches = cuda_rasterize.LAUNCHES
-    torch.cuda.synchronize()
-    for k in launches:
-        launches[k] = 0
+    zero_launches()
     record = bench.main([], sol=sol)
     torch.cuda.synchronize()
-    counts = dict(launches)
+    counts = launch_counts()
     extra = record["extra"]
     gate = extra.get("kernel_parity", {})
     # the gate runs K1 and K2 once; the headline and the trained scene each
@@ -1561,7 +1561,8 @@ def phase_bench(device, sol: dict) -> None:
     problems = []
     if not (extra.get("kernel_parity_ok") and gate.get("prep_ok")):
         problems.append("the kernel gate failed")
-    if extra["launches_per_iteration"] != {k: 1.0 for k in counts} \
+    if extra["launches_per_iteration"] != {f"{k}.launches": 1.0 for k in
+                                           KERNEL_COUNTERS.values()} \
             or counts != want:
         problems.append(f"launches {counts}, per iteration "
                         f"{extra['launches_per_iteration']}")
@@ -1668,13 +1669,13 @@ def capture_readback_error(root: Path, cams) -> float:
 def uncounted():
     """Launches inside compare a kernel with its plain version: K1's and
     K2's launch and CTA counts are put back on leaving."""
-    counts = cuda_rasterize.LAUNCHES, cuda_rasterize.CTAS
-    saved = [dict(c) for c in counts]
+    keys = [f"{k}.{what}" for k in KERNEL_COUNTERS.values()
+            for what in ("launches", "ctas")]
+    saved = {k: tracing.COUNTERS[k] for k in keys}
     try:
         yield
     finally:
-        for c, was in zip(counts, saved):
-            c.update(was)
+        tracing.COUNTERS.update(saved)
 
 
 def eval_render_vs_plain(name: str, trainer, settings, model, view, proj,
@@ -1849,16 +1850,13 @@ def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
         argv += ["--device", device.type]
 
     probe = TrainerProbe(check_step=TRAINER_CHECK_STEP)
-    launches = cuda_rasterize.LAUNCHES
-    torch.cuda.synchronize()
-    for k in launches:
-        launches[k] = 0
+    zero_launches()
     t0 = time.perf_counter()
     with probe.attached():
         trainer = train_cli.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    got = dict(launches)
+    got = launch_counts()
 
     steps_run = len(probe.steps)
     renders = len(probe.renders)
@@ -1933,15 +1931,20 @@ def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
     return got
 
 
-def zero_launches() -> dict:
-    """Set K1's and K2's launch counts to 0 (after the card is idle) and
-    return the dict that holds them."""
-    launches = cuda_rasterize.LAUNCHES
+def launch_counts(what: str = "launches") -> dict:
+    """K1's and K2's launches so far (or, with ``"ctas"``, the CTAs they
+    started), by kernel, from the port's counters."""
+    return {name: tracing.COUNTERS[f"{k}.{what}"]
+            for name, k in KERNEL_COUNTERS.items()}
+
+
+def zero_launches() -> None:
+    """Set K1's and K2's launch and CTA counts to 0 (after the card is
+    idle)."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    for k in launches:
-        launches[k] = 0
-    return launches
+    for k in KERNEL_COUNTERS.values():
+        tracing.COUNTERS[f"{k}.launches"] = tracing.COUNTERS[f"{k}.ctas"] = 0
 
 
 def example_vs_plain(size: int, device) -> dict:
@@ -2006,10 +2009,10 @@ def phase_clis(device, root: Path = CAPTURE_DIR) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     counts = {}
 
-    launches = zero_launches()
+    zero_launches()
     img8 = render_cli.main(["--out", str(out / "example_render.png")])
     torch.cuda.synchronize()
-    counts["render"] = dict(launches)
+    counts["render"] = launch_counts()
     with uncounted():
         errs = example_vs_plain(render_cli.EXAMPLE_SIZE, device)
         image = render_cli.render_example(render_cli.EXAMPLE_SIZE, device)[0]
@@ -2027,11 +2030,11 @@ def phase_clis(device, root: Path = CAPTURE_DIR) -> dict:
     ply = trained / "point_cloud" / f"iteration_{TRAINER_STEPS - 1}" \
         / "point_cloud.ply"
     tests = _events(trained, "test")
-    launches = zero_launches()
+    zero_launches()
     line = eval_model.main(["--ply", str(ply), "--dataset", str(capture),
                             "--split", "test"])
     torch.cuda.synchronize()
-    counts["eval_model"] = dict(launches)
+    counts["eval_model"] = launch_counts()
     conventions = psnr_conventions(ply, capture, device)
     trainer_psnr = tests[-1]["psnr"]
     gaps = {"cli_minus_trainer": line["psnr"] - trainer_psnr,
@@ -2054,13 +2057,13 @@ def phase_clis(device, root: Path = CAPTURE_DIR) -> dict:
                            f"{trainer_psnr}")
 
     gif = out / "turntable.gif"
-    launches = zero_launches()
+    zero_launches()
     frames = render_turntable.main(["--ply", str(scenes.LEGO_PLY), "--out",
                                     str(gif), "--frames",
                                     str(TURNTABLE_FRAMES), "--size",
                                     str(SIZE)])
     torch.cuda.synchronize()
-    counts["render_turntable"] = dict(launches)
+    counts["render_turntable"] = launch_counts()
     with uncounted():
         params = convert.params_from_numpy(scenes.lego_params(), device)
         bg = torch.zeros(3, dtype=torch.float32, device=device)
@@ -2324,14 +2327,15 @@ def sharded_child(args: dict) -> int:
                 torch.cuda.synchronize()
 
         step()                                          # warm-up
-        launches = zero_launches()
-        bytes_before = dict(collectives.BYTES)
+        zero_launches()
+        bytes_before = {k: v for k, v in tracing.COUNTERS.items()
+                        if k.startswith("collective.bytes.")}
         t0 = time.perf_counter()
         loss, grads, counts = step()
         sync()
         step_ms = (time.perf_counter() - t0) * 1e3
-        got = dict(launches)
-        moved = {k: v - bytes_before[k] for k, v in collectives.BYTES.items()}
+        got = launch_counts()
+        moved = {k: tracing.COUNTERS[k] - v for k, v in bytes_before.items()}
         with uncounted():
             _, grads_plain, _ = step(_compositing=PLAIN_COMPOSITING)
             checks = {"step_vs_plain": check_grads(
@@ -2496,9 +2500,11 @@ def sharded_training(capture: Path, out: Path, logs: Path, device) -> dict:
             "steps_run": [r["steps_run"] for r in runs],
             "step_ms_median_per_rank": [r["step_ms_median"] for r in runs],
             "collective_bytes_per_step_per_rank": [
-                {k: v / r["steps_run"] for k, v in
-                 r["collective_bytes"].items()} for r in runs],
-            "launches_per_rank": [r["kernel_launches"] for r in runs],
+                {k: v / r["steps_run"] for k, v in r["counters"].items()
+                 if k.startswith("collective.bytes.")} for r in runs],
+            "launches_per_rank": [
+                {name: r["counters"][f"{k}.launches"]
+                 for name, k in KERNEL_COUNTERS.items()} for r in runs],
             "densify_digests": [r["densify_digests"] for r in runs],
             "densify": densify, "evals": evals,
             "first_losses": losses[:5].tolist(),
@@ -2510,8 +2516,8 @@ def sharded_training(capture: Path, out: Path, logs: Path, device) -> dict:
     log(path="sharded training", **line)
     problems = []
     for r in runs:
-        k1, k2 = (r["kernel_launches"][k]
-                  for k in ("rasterize_fwd", "rasterize_bwd"))
+        k1, k2 = (r["counters"][f"{k}.launches"]
+                  for k in KERNEL_COUNTERS.values())
         if k2 != r["steps_run"] or (k1 != r["steps_run"] if r["rank"]
                                     else k1 < r["steps_run"]):
             problems.append(f"rank {r['rank']}: launches {k1} / {k2} for "

@@ -52,13 +52,14 @@ import torch
 
 from gstpu_torch import convert, scenes
 from gstpu_torch.config import RenderSettings
-from gstpu_torch.ops import cuda_rasterize, kernel_check
+from gstpu_torch.ops import kernel_check
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss
 from gstpu_torch.ops.preprocess import preprocess
 from gstpu_torch.ops.rasterize import pair_cull_threshold, render
 from gstpu_torch.render import resolve_device
 from gstpu_torch.sol_model import card
+from gstpu_torch.utils import tracing
 from gstpu_torch.utils.ply import load_ply, render_space_params
 
 BASELINE_BUDGET_MS = 100.0
@@ -251,10 +252,10 @@ def main(argv=None, sol: dict | None = None) -> dict:
                   file=sys.stderr)
 
     work, rng = headline(device)
-    before = dict(cuda_rasterize.LAUNCHES)
+    keys = ("k1.launches", "k2.launches")
+    before = {k: tracing.COUNTERS[k] for k in keys}
     ms = time_slope(lambda: fwd_bwd(work))
-    launches = {k: (cuda_rasterize.LAUNCHES[k] - before[k]) / RUNS
-                for k in before}
+    launches = {k: (tracing.COUNTERS[k] - before[k]) / RUNS for k in keys}
     n = work.params[0].shape[0]
     extra = {
         "gaussians_per_s": n / (ms / 1e3),

@@ -39,11 +39,7 @@ from gstpu_torch.config import RenderSettings, TILE_PIXELS
 from gstpu_torch.ops import cuda_build, rasterize
 from gstpu_torch.ops.binning import Pairs
 from gstpu_torch.ops.preprocess import PreprocessOut
-
-# Kernel launches made by the wrappers (one per call on CUDA tensors), and
-# the CTAs those launches started (K1 reports its grid; K2's is ``ctas``).
-LAUNCHES = {"rasterize_fwd": 0, "rasterize_bwd": 0}
-CTAS = {"rasterize_fwd": 0, "rasterize_bwd": 0}
+from gstpu_torch.utils import tracing
 
 # Pairs per K2 work item when K1 checkpoints; a multiple of K1's batch
 # (256 ran faster than 512 and 1,024 on the H100, PERF.md).
@@ -245,8 +241,10 @@ def _forward(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
         n_contrib.data_ptr(), ctypes.byref(ctas),
         cuda_build.device_index(dev), stream)
     cuda_build.raise_on_error(lib, "rasterize_fwd", err)
-    LAUNCHES["rasterize_fwd"] += 1
-    CTAS["rasterize_fwd"] += ctas.value
+    # one launch per call on CUDA tensors, and the CTAs it started (K1's C
+    # launcher reports its grid)
+    tracing.COUNTERS.add("k1.launches")
+    tracing.COUNTERS.add("k1.ctas", ctas.value)
     return color, dacc, final_t, n_contrib, ckpt
 
 
@@ -336,8 +334,8 @@ def backward_rows(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
         settings.grid_x, int(row0), settings.row_stride, rows.data_ptr(),
         cuda_build.device_index(dev), stream)
     cuda_build.raise_on_error(lib, "rasterize_bwd", err)
-    LAUNCHES["rasterize_bwd"] += 1
-    CTAS["rasterize_bwd"] += ctas
+    tracing.COUNTERS.add("k2.launches")
+    tracing.COUNTERS.add("k2.ctas", ctas)
     return rows
 
 

@@ -41,8 +41,11 @@ def dnormvdv(v: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[..., None], out, 0.0)
 
 
-def _visible(radii: torch.Tensor, dtype) -> torch.Tensor:
-    return (radii > 0).to(dtype)[:, None]
+def _visible(radii: torch.Tensor) -> torch.Tensor:
+    """(N, 1) True for the Gaussians the forward kept.  Culled Gaussians'
+    terms are dropped with ``torch.where``, not multiplied by nought: at
+    view-space depth 0 they overflow, and nought times inf is NaN."""
+    return (radii > 0)[:, None]
 
 
 def cov2d_backward(means: torch.Tensor, cov3d: torch.Tensor,
@@ -81,8 +84,8 @@ def cov2d_backward(means: torch.Tensor, cov3d: torch.Tensor,
             ct = dL_dconic * torch.tensor([1.0, 2.0, 1.0], dtype=dtype,
                                           device=means.device)
             dmean, dcov3d = torch.autograd.grad(conic, (m, c6), ct)
-        vis = _visible(radii, dtype)
-        return dmean * vis, dcov3d * vis
+        vis = _visible(radii)
+        return torch.where(vis, dmean, 0.0), torch.where(vis, dcov3d, 0.0)
 
     t = math3d.transform_points(means, view)
     tz = t[:, 2]
@@ -181,8 +184,8 @@ def cov2d_backward(means: torch.Tensor, cov3d: torch.Tensor,
         [dt[0] * view[j, 0] + dt[1] * view[j, 1] + dt[2] * view[j, 2]
          + (view[j, 3] if translation_bias else 0.0) for j in range(3)],
         dim=-1)
-    vis = _visible(radii, dtype)
-    return dmean * vis, dcov3d * vis
+    vis = _visible(radii)
+    return torch.where(vis, dmean, 0.0), torch.where(vis, dcov3d, 0.0)
 
 
 def projection_backward(means: torch.Tensor, radii: torch.Tensor,
@@ -201,7 +204,7 @@ def projection_backward(means: torch.Tensor, radii: torch.Tensor,
         (proj[i, 0] * m_w - proj[i, 3] * mul1) * gx
         + (proj[i, 1] * m_w - proj[i, 3] * mul2) * gy for i in range(3)],
         dim=-1)
-    return dmean * _visible(radii, means.dtype)
+    return torch.where(_visible(radii), dmean, 0.0)
 
 
 def sh_backward(means: torch.Tensor, shs: torch.Tensor, radii: torch.Tensor,
@@ -303,14 +306,14 @@ def cov3d_backward(scales: torch.Tensor, rotations: torch.Tensor,
     it is the true adjoint of ``math3d.compute_cov3d`` through autograd.
     Returns (dL_dscales (N,3), dL_drots (N,4) in (x,y,z,w) order).
     """
-    vis = _visible(radii, scales.dtype)
+    vis = _visible(radii)
     if not parity:
         with torch.enable_grad():
             s_ = scales.detach().requires_grad_(True)
             q_ = rotations.detach().requires_grad_(True)
             cov = math3d.compute_cov3d(s_, scale_modifier, q_)
             dscale, drot = torch.autograd.grad(cov, (s_, q_), dL_dcov3d)
-        return dscale * vis, drot * vis
+        return torch.where(vis, dscale, 0.0), torch.where(vis, drot, 0.0)
 
     q = rotations
     r = q[:, 3]
@@ -355,4 +358,4 @@ def cov3d_backward(scales: torch.Tensor, rotations: torch.Tensor,
                  + y * (m_e(1, 2) + m_e(2, 1)))
           - 4.0 * z * (m_e(1, 1) + m_e(0, 0)))
     drot = torch.stack([dx, dy, dz, dr], dim=-1)
-    return dscale * vis, drot * vis
+    return torch.where(vis, dscale, 0.0), torch.where(vis, drot, 0.0)

@@ -43,6 +43,7 @@ from gstpu_torch.config import RenderSettings, TILE_PIXELS, TILE_X, TILE_Y
 from gstpu_torch.ops import preprocess_bwd
 from gstpu_torch.ops.binning import Pairs, build_pairs
 from gstpu_torch.ops.preprocess import PreprocessOut, preprocess
+from gstpu_torch.utils import tracing
 
 ALPHA_MIN = 1.0 / 255.0   # forward.py:481
 T_EPS = 1e-4              # forward.py:487
@@ -457,40 +458,44 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
                           alive=al, tight_radius=settings.tight_radius)
 
     axis = _slice_axis(settings, mesh, means.shape[0], "preprocess")
-    if axis is None:
-        prep = _preprocess(means, scales, rotations, opacities, shs, alive)
-    else:
-        # the preprocess is elementwise per Gaussian: each rank runs its
-        # slice and all-gathers the outputs
-        from gstpu_torch.parallel import collectives
-        nl = means.shape[0] // axis.size
-        i0 = axis.index * nl
+    with tracing.span("forward.preprocess"):
+        if axis is None:
+            prep = _preprocess(means, scales, rotations, opacities, shs, alive)
+        else:
+            # the preprocess is elementwise per Gaussian: each rank runs its
+            # slice and all-gathers the outputs
+            from gstpu_torch.parallel import collectives
+            nl = means.shape[0] // axis.size
+            i0 = axis.index * nl
 
-        def sl(x):
-            return None if x is None else x[i0:i0 + nl]
+            def sl(x):
+                return None if x is None else x[i0:i0 + nl]
 
-        prep_local = _preprocess(sl(means), sl(scales), sl(rotations),
-                                 sl(opacities), sl(shs), sl(alive))
-        prep = PreprocessOut(*collectives.all_gather_many(prep_local, axis))
-    rect_band, tiles_band = clip_rect_to_band(prep.rect, prep.tiles_touched,
-                                              row0, settings.band_rows,
-                                              settings.row_stride)
-    cull_xy = cull_tcut = None
-    if settings.pair_cull:
-        cull_tcut = pair_cull_threshold(prep)
-        cull_xy = prep.xy
-    pairs = build_pairs(tiles_band, rect_band, prep.depth,
-                        settings.grid_x, settings.band_tiles,
-                        settings.pair_capacity, cull_xy=cull_xy,
-                        cull_tcut=cull_tcut, row0=row0,
-                        row_stride=settings.row_stride,
-                        kept_capacity=settings.kept_capacity)
-    color, dacc, final_t, n_contrib, *rest = composite_fwd(
-        prep, pairs, settings, row0=row0)
-
-    image_tiles = color + final_t[:, :, None] * bg[None, None, :]
-    image = tiles_to_image(image_tiles, settings)
-    depth = tiles_to_image(dacc, settings)
+            prep_local = _preprocess(sl(means), sl(scales), sl(rotations),
+                                     sl(opacities), sl(shs), sl(alive))
+            prep = PreprocessOut(*collectives.all_gather_many(prep_local,
+                                                              axis))
+    with tracing.span("forward.binning"):
+        rect_band, tiles_band = clip_rect_to_band(
+            prep.rect, prep.tiles_touched, row0, settings.band_rows,
+            settings.row_stride)
+        cull_xy = cull_tcut = None
+        if settings.pair_cull:
+            cull_tcut = pair_cull_threshold(prep)
+            cull_xy = prep.xy
+        pairs = build_pairs(tiles_band, rect_band, prep.depth,
+                            settings.grid_x, settings.band_tiles,
+                            settings.pair_capacity, cull_xy=cull_xy,
+                            cull_tcut=cull_tcut, row0=row0,
+                            row_stride=settings.row_stride,
+                            kept_capacity=settings.kept_capacity)
+    with tracing.span("forward.composite"):
+        color, dacc, final_t, n_contrib, *rest = composite_fwd(
+            prep, pairs, settings, row0=row0)
+    with tracing.span("forward.image"):
+        image_tiles = color + final_t[:, :, None] * bg[None, None, :]
+        image = tiles_to_image(image_tiles, settings)
+        depth = tiles_to_image(dacc, settings)
     aux = RenderAux(radii=prep.radii, num_pairs=pairs.num_pairs,
                     final_t=final_t, n_contrib=n_contrib, xy=prep.xy,
                     num_kept=pairs.num_kept)
@@ -554,63 +559,68 @@ class _Render(torch.autograd.Function):
         (color, dacc, final_t, means, scales, rotations, shs, view, proj,
          campos, bg) = saved[_N_PREP + _N_PAIRS:]
 
-        dl_dpix = image_to_tiles(ct_image, settings)
-        # the inverse-depth image is a fourth composited channel with no
-        # background term (the reference has no depth backward)
-        dl_ddepth = image_to_tiles(ct_depth, settings)
-        d_color, d_mean2d, d_conic, d_opac, d_invd = composite_bwd(
-            prep, pairs, settings, color, final_t, dl_dpix, bg, row0=row0,
-            depth_acc=dacc, dl_ddepth=dl_ddepth, **checkpoints)
+        with tracing.span("backward.composite"):
+            dl_dpix = image_to_tiles(ct_image, settings)
+            # the inverse-depth image is a fourth composited channel with
+            # no background term (the reference has no depth backward)
+            dl_ddepth = image_to_tiles(ct_depth, settings)
+            d_color, d_mean2d, d_conic, d_opac, d_invd = composite_bwd(
+                prep, pairs, settings, color, final_t, dl_dpix, bg,
+                row0=row0, depth_acc=dacc, dl_ddepth=dl_ddepth,
+                **checkpoints)
 
-        focal_x = settings.width / (2.0 * tan_fovx)
-        focal_y = settings.height / (2.0 * tan_fovy)
-        n = means.shape[0]
-        chain = (means, prep.cov3d, prep.radii, shs, prep.clamped, scales,
-                 rotations, prep.depth)
-        axis = _slice_axis(settings, mesh, n, "adjoint")
-        if axis is not None:
-            # the chain is per Gaussian and linear in the cotangents: sum
-            # the bands' cotangents first (a Gaussian's pairs span several
-            # bands), then chain this rank's slice alone
-            from gstpu_torch.parallel import collectives
-            nl = n // axis.size
-            i0 = axis.index * nl
-            chain = tuple(x[i0:i0 + nl] for x in chain)
-            d_conic, d_mean2d, d_color, d_invd = \
-                collectives.reduce_scatter_many(
-                    (d_conic, d_mean2d, d_color, d_invd), axis)
-        means_c, cov3d, radii, shs_c, clamped, scales_c, rots_c, depth = chain
-        # preprocess adjoint chain: cov2d -> projection -> SH -> cov3d, with
-        # dL/dmeans gathered from four sources
-        dmean_cov, dcov3d = preprocess_bwd.cov2d_backward(
-            means_c, cov3d, radii, focal_x, focal_y, tan_fovx,
-            tan_fovy, view, d_conic, parity=settings.parity,
-            translation_bias=settings.grad_bias_parity)
-        dmean_proj = preprocess_bwd.projection_backward(
-            means_c, radii, proj, d_mean2d)
-        dsh, dmean_sh = preprocess_bwd.sh_backward(
-            means_c, shs_c, radii, campos, clamped, d_color,
-            settings.sh_degree)
-        dscale, drot = preprocess_bwd.cov3d_backward(
-            scales_c, rots_c, radii, scale_modifier, dcov3d,
-            parity=settings.parity)
-        # depth chain: inv_depth = 1/t_z, t_z = [p,1] @ view (row vector), so
-        # dL/dp_j += -inv_depth^2 * dL/dinv_depth * view[j, 2]
-        inv_depth = 1.0 / torch.where(depth == 0.0, 1.0, depth)
-        d_tz = -inv_depth * inv_depth * d_invd * (radii > 0).to(
-            means.dtype)
-        dmean_depth = d_tz[:, None] * view[None, :3, 2]
-        dmean = dmean_cov + dmean_proj + dmean_sh + dmean_depth
-        if axis is not None:
-            # back at full size, zero outside the slice: the reduce-scatter
-            # of the caller's all-gather sums the ranks and hands each its
-            # slice complete
-            def embed(x):
-                full = x.new_zeros((n,) + tuple(x.shape[1:]))
-                full[i0:i0 + nl] = x
-                return full
+        with tracing.span("backward.adjoint"):
+            focal_x = settings.width / (2.0 * tan_fovx)
+            focal_y = settings.height / (2.0 * tan_fovy)
+            n = means.shape[0]
+            chain = (means, prep.cov3d, prep.radii, shs, prep.clamped,
+                     scales, rotations, prep.depth)
+            axis = _slice_axis(settings, mesh, n, "adjoint")
+            if axis is not None:
+                # the chain is per Gaussian and linear in the cotangents:
+                # sum the bands' cotangents first (a Gaussian's pairs span
+                # several bands), then chain this rank's slice alone
+                from gstpu_torch.parallel import collectives
+                nl = n // axis.size
+                i0 = axis.index * nl
+                chain = tuple(x[i0:i0 + nl] for x in chain)
+                d_conic, d_mean2d, d_color, d_invd = \
+                    collectives.reduce_scatter_many(
+                        (d_conic, d_mean2d, d_color, d_invd), axis)
+            (means_c, cov3d, radii, shs_c, clamped, scales_c, rots_c,
+             depth) = chain
+            # preprocess adjoint chain: cov2d -> projection -> SH -> cov3d,
+            # with dL/dmeans gathered from four sources
+            dmean_cov, dcov3d = preprocess_bwd.cov2d_backward(
+                means_c, cov3d, radii, focal_x, focal_y, tan_fovx,
+                tan_fovy, view, d_conic, parity=settings.parity,
+                translation_bias=settings.grad_bias_parity)
+            dmean_proj = preprocess_bwd.projection_backward(
+                means_c, radii, proj, d_mean2d)
+            dsh, dmean_sh = preprocess_bwd.sh_backward(
+                means_c, shs_c, radii, campos, clamped, d_color,
+                settings.sh_degree)
+            dscale, drot = preprocess_bwd.cov3d_backward(
+                scales_c, rots_c, radii, scale_modifier, dcov3d,
+                parity=settings.parity)
+            # depth chain: inv_depth = 1/t_z, t_z = [p,1] @ view (row
+            # vector), so dL/dp_j += -inv_depth^2 * dL/dinv_depth * view[j, 2]
+            inv_depth = 1.0 / torch.where(depth == 0.0, 1.0, depth)
+            d_tz = torch.where(radii > 0, -inv_depth * inv_depth * d_invd,
+                               0.0)
+            dmean_depth = d_tz[:, None] * view[None, :3, 2]
+            dmean = dmean_cov + dmean_proj + dmean_sh + dmean_depth
+            if axis is not None:
+                # back at full size, zero outside the slice: the
+                # reduce-scatter of the caller's all-gather sums the ranks
+                # and hands each its slice complete
+                def embed(x):
+                    full = x.new_zeros((n,) + tuple(x.shape[1:]))
+                    full[i0:i0 + nl] = x
+                    return full
 
-            dmean, dscale, drot, dsh = map(embed, (dmean, dscale, drot, dsh))
+                dmean, dscale, drot, dsh = map(embed,
+                                               (dmean, dscale, drot, dsh))
         # settings, tan_fovx, tan_fovy, scale_modifier, row0, compositing,
         # mesh; the camera, background and alive mask are inputs, not
         # parameters

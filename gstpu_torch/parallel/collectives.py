@@ -26,8 +26,9 @@ received on the tensor's own device.  gloo's own CUDA collectives copy
 through host memory; the transports in ``GLOO_HOST_ONLY``, which gloo
 fails for CUDA tensors, are handed a host copy instead and their result is
 copied back (``chip_smoke.py``'s gloo probe tells which).  A group of one
-rank is the identity, with no call.  ``BYTES`` counts the bytes each call
-hands to the backend from this rank, by collective.
+rank is the identity, with no call.  Each call adds the bytes it hands to
+the backend from this rank to the counter ``collective.bytes.<op>``
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -35,15 +36,14 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from gstpu_torch.utils import tracing
+
 # The three transports of the gloo path, and those gloo fails for CUDA
 # tensors: on an H100 with torch 2.11, send and receive write the device
 # pointer to the socket ("writev: Bad address"); all-gather and all-to-all
 # take CUDA tensors (chip_smoke.gloo_probe)
 GLOO_TRANSPORTS = ("all_gather", "all_to_all", "exchange")
 GLOO_HOST_ONLY = frozenset({"exchange"})
-
-BYTES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
-         "exchange": 0}
 
 
 def _gloo(group) -> bool:
@@ -101,7 +101,7 @@ def _gathered(x: torch.Tensor, group, size: int, counter: str) -> list:
     send = _transport(x.contiguous(), group, "all_gather")
     parts = [torch.empty_like(send) for _ in range(size)]
     dist.all_gather(parts, send, group=group)
-    BYTES[counter] += _nbytes(send)
+    tracing.COUNTERS.add(f"collective.bytes.{counter}", _nbytes(send))
     return [p.to(x.device) for p in parts]
 
 
@@ -138,14 +138,15 @@ def reduce_scatter_rows(x: torch.Tensor, axis) -> torch.Tensor:
         send = _transport(x, axis.group, "all_to_all")
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=axis.group)
-        BYTES["reduce_scatter"] += _nbytes(send)
+        tracing.COUNTERS.add("collective.bytes.reduce_scatter",
+                             _nbytes(send))
         blocks = recv.to(x.device).reshape((axis.size, rows)
                                            + tuple(x.shape[1:]))
         return blocks.sum(0)
     out = torch.empty_like(x[:rows])
     # the list form: reduce_scatter_tensor is deprecated from torch 2.13
     dist.reduce_scatter(out, list(x.chunk(axis.size)), group=axis.group)
-    BYTES["reduce_scatter"] += _nbytes(x)
+    tracing.COUNTERS.add("collective.bytes.reduce_scatter", _nbytes(x))
     return out
 
 
@@ -178,7 +179,7 @@ def all_reduce(x: torch.Tensor, axis, op: str = "sum") -> torch.Tensor:
     out = x.clone().contiguous()
     dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
-    BYTES["all_reduce"] += _nbytes(out)
+    tracing.COUNTERS.add("collective.bytes.all_reduce", _nbytes(out))
     return out
 
 
@@ -237,7 +238,8 @@ def exchange(up: torch.Tensor, down: torch.Tensor, axis):
            dist.P2POp(dist.irecv, from_prev, prev, axis.group, tag=1)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    BYTES["exchange"] += _nbytes(send_up) + _nbytes(send_down)
+    tracing.COUNTERS.add("collective.bytes.exchange",
+                         _nbytes(send_up) + _nbytes(send_down))
     return from_next.to(up.device), from_prev.to(down.device)
 
 

@@ -24,6 +24,7 @@ import torch
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.convert import pad_shs
 from gstpu_torch.ops.rasterize import render_forward
+from gstpu_torch.utils import tracing
 from gstpu_torch.utils.camera import projection_matrix, world_to_view
 
 
@@ -67,29 +68,38 @@ def render_gaussians(background, means3D, colors=None, opacity=None,
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
-    means3D = f32(means3D)
-    n = means3D.shape[0]
+    with tracing.span("render.inputs"):
+        means3D = f32(means3D)
+        n = means3D.shape[0]
+        shs = pad_shs(f32(sh))
+        if alive is not None:
+            alive = torch.as_tensor(alive, dtype=torch.bool, device=device)
+        args = (means3D, f32(scales), f32(rotations), f32(opacity).reshape(n),
+                shs, f32(viewmatrix), f32(projmatrix), f32(campos),
+                f32(background), alive)
     if pair_capacity is None:
         pair_capacity = default_pair_capacity(n)
     settings = RenderSettings(width=int(image_width), height=int(image_height),
                               sh_degree=int(degree),
                               pair_capacity=int(pair_capacity))
-    shs = pad_shs(f32(sh))
-    if alive is not None:
-        alive = torch.as_tensor(alive, dtype=torch.bool, device=device)
-    args = (means3D, f32(scales), f32(rotations), f32(opacity).reshape(n),
-            shs, f32(viewmatrix), f32(projmatrix), f32(campos),
-            f32(background), alive)
-    while True:
-        image, depth, aux = render_forward(settings, float(tan_fovx),
-                                           float(tan_fovy),
-                                           float(scale_modifier), *args)
-        num_pairs = int(aux.num_pairs)
-        if num_pairs <= settings.pair_capacity:
-            break
-        # the pair list overflowed: grow to the next power of two, re-render
-        settings = dataclasses.replace(
-            settings, pair_capacity=int(2 ** np.ceil(np.log2(num_pairs))))
+
+    def frame():
+        return render_forward(settings, float(tan_fovx), float(tan_fovy),
+                              float(scale_modifier), *args)
+
+    image, depth, aux = frame()
+    with tracing.span("render.regrow"):
+        while True:
+            num_pairs = int(aux.num_pairs)
+            tracing.COUNTERS.add("render.pairs", num_pairs)
+            tracing.COUNTERS.add("render.pair_slots", settings.pair_capacity)
+            if num_pairs <= settings.pair_capacity:
+                break
+            # the pair list overflowed: grow to the next power of two and
+            # render again
+            settings = dataclasses.replace(
+                settings, pair_capacity=int(2 ** np.ceil(np.log2(num_pairs))))
+            image, depth, aux = frame()
     if debug:
         print(f"gstpu_torch render: {image_width}x{image_height}, {n} "
               f"gaussians, pairs={num_pairs}/{settings.pair_capacity}")

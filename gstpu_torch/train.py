@@ -26,10 +26,9 @@ import statistics
 import torch.distributed as dist
 
 from gstpu_torch.config import GSConfig
-from gstpu_torch.ops import cuda_rasterize
-from gstpu_torch.parallel import collectives
 from gstpu_torch.parallel.multihost import distributed_config, init_distributed
 from gstpu_torch.trainer import Trainer
+from gstpu_torch.utils import tracing
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -142,9 +141,10 @@ def config_from_args(args: argparse.Namespace) -> GSConfig:
 
 def summary(trainer: Trainer, backend: str | None) -> dict:
     """This rank's run: its place, the steps it took and their median time
-    (``Trainer.step_ms``: CUDA events on the card), this process's kernel
-    launches and the bytes its collectives handed to the backend, and the
-    model's digest after each densify event (under a mesh)."""
+    (``Trainer.step_ms``: CUDA events on the card), this process's counters
+    (``tracing.COUNTERS``: kernel launches, the bytes its collectives handed
+    to the backend, pairs against pair slots, replays), and the model's
+    digest after each densify event (under a mesh)."""
     mesh = trainer.mesh
     step_ms = trainer.step_ms()
     return {"rank": mesh.rank if mesh else 0,
@@ -153,8 +153,7 @@ def summary(trainer: Trainer, backend: str | None) -> dict:
             "steps_run": trainer.steps_run,
             "step_ms_median": (statistics.median(step_ms)
                                if step_ms else None),
-            "kernel_launches": dict(cuda_rasterize.LAUNCHES),
-            "collective_bytes": dict(collectives.BYTES),
+            "counters": dict(tracing.COUNTERS),
             "densify_digests": trainer.densify_digests}
 
 

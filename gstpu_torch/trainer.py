@@ -55,6 +55,7 @@ from gstpu_torch.optim import (AdamState, adam_step, init_adam_state,
 from gstpu_torch.parallel import collectives
 from gstpu_torch.parallel.multihost import shard_rows
 from gstpu_torch.render import resolve_device
+from gstpu_torch.utils import tracing
 from gstpu_torch.utils.camera import save_cameras_json
 from gstpu_torch.utils.image import imwrite
 from gstpu_torch.utils.ply import save_ply
@@ -105,10 +106,11 @@ def loss_and_grads(settings: RenderSettings, config: GSConfig,
         settings, tan_fovx, tan_fovy, config.scale_modifier, p["positions"],
         p["scales"], p["rotations"], p["opacities"], p["shs"], view, proj,
         campos, bg, model.alive, 0, _compositing=_compositing)
-    loss = combined_loss(image, target, config.lambda_dssim)
-    if target_depth is not None:
-        loss = loss + config.lambda_depth * depth_loss(
-            depth, config.depth_scale * target_depth, depth_mask)
+    with tracing.span("loss"):
+        loss = combined_loss(image, target, config.lambda_dssim)
+        if target_depth is not None:
+            loss = loss + config.lambda_depth * depth_loss(
+                depth, config.depth_scale * target_depth, depth_mask)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads)), aux
 
@@ -139,9 +141,10 @@ def train_step(settings: RenderSettings, config: GSConfig,
     loss, grads, aux = loss_and_grads(
         settings, config, model, view, proj, campos, tan_fovx, tan_fovy,
         target, target_depth=target_depth, depth_mask=depth_mask)
-    new_params, new_adam = adam_step(
-        model.param_dict(), grads, adam, schedule_lrs(config, iteration),
-        iteration, config, alive=model.alive)
+    with tracing.span("adam"):
+        new_params, new_adam = adam_step(
+            model.param_dict(), grads, adam, schedule_lrs(config, iteration),
+            iteration, config, alive=model.alive)
     counts = torch.stack([aux.num_pairs, aux.num_kept])
     return (model.replace(**new_params), new_adam, loss, grads["positions"],
             counts, iteration + 1)
@@ -513,9 +516,10 @@ class Trainer:
             band(self._depths[cam] if self._depths is not None else None),
             band(self._depth_masks[cam]
                  if self._depth_masks is not None else None))
-        params, self.adam = adam_step(params, grads, self.adam,
-                                      schedule_lrs(cfg, it), it, cfg,
-                                      alive=alive)
+        with tracing.span("adam"):
+            params, self.adam = adam_step(params, grads, self.adam,
+                                          schedule_lrs(cfg, it), it, cfg,
+                                          alive=alive)
         self.model = self.model.replace(**params)
         return loss, grads["positions"], counts
 
@@ -591,6 +595,13 @@ class Trainer:
             num_pairs = fetched[:, 1].astype(np.int64)
             num_kept = fetched[:, 2].astype(np.int64)
             max_pairs, max_kept = int(num_pairs.max()), int(num_kept.max())
+            steps = len(pending)
+            tracing.COUNTERS.add("train.pairs", int(num_pairs.sum()))
+            tracing.COUNTERS.add("train.pair_slots",
+                                 steps * self._pair_capacity)
+            tracing.COUNTERS.add("train.kept", int(num_kept.sum()))
+            tracing.COUNTERS.add("train.kept_slots", steps * min(
+                self._kept_capacity, self._pair_capacity))
             overflow_steps = int(np.sum((num_pairs > self._pair_capacity)
                                         | (num_kept > self._kept_capacity)))
             rollback = bool(overflow_steps) and snap is not None \
@@ -633,6 +644,8 @@ class Trainer:
                            "rolled_back": rollback})
             pending = []
             if rollback:
+                tracing.COUNTERS.add("train.rollbacks")
+                tracing.COUNTERS.add("train.replays", steps)
                 # the replayed window takes a snapshot of its own
                 ((self.model, self.adam), self.iteration, gen_state,
                  rng_state) = snap

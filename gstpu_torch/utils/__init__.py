@@ -1,1 +1,2 @@
-"""NumPy I/O: PLY checkpoints and cameras."""
+"""NumPy I/O (PLY checkpoints, cameras, images) and the program's spans and
+counters (``tracing``)."""

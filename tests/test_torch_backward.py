@@ -53,6 +53,7 @@ from gstpu_torch import scenes as torch_scenes
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize
 from gstpu_torch.ops import rasterize as TR
+from gstpu_torch.utils import tracing
 
 GRAD_NAMES = ("d_color", "d_mean2d", "d_conic", "d_opac", "d_invdepth")
 
@@ -441,12 +442,12 @@ def test_epilogue_matches_index_add_of_rows(cull):
 def test_backward_wrapper_runs_plain_version_on_cpu():
     settings, prep_np, pairs_np, inputs = _scene(2, (0.2, 0.9))
     prep, pairs, ins = _torch_args(prep_np, pairs_np, inputs)
-    before = dict(cuda_rasterize.LAUNCHES), dict(cuda_rasterize.CTAS)
+    before = dict(tracing.COUNTERS)
     got = cuda_rasterize.composite_backward(prep, pairs, settings, **ins)
     want = TR.composite_backward(prep, pairs, settings, **ins)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert (cuda_rasterize.LAUNCHES, cuda_rasterize.CTAS) == before
+    assert tracing.COUNTERS == before
     with pytest.raises(ValueError, match="no compositing kernel"):
         cuda_rasterize.backward_rows(prep, pairs, settings, **ins)
     with pytest.raises(ValueError, match="no checkpoints"):
@@ -508,3 +509,48 @@ def test_render_on_the_cpu_passes_no_checkpoints(monkeypatch):
         b = np.asarray(b, np.float64)
         scale = max(float(np.abs(b).max()), 1e-8)
         np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=1e-4)
+
+
+@pytest.mark.parametrize("parity", [True, False])
+def test_a_culled_gaussian_in_the_cameras_plane_gets_no_gradient(parity):
+    """A Gaussian two units beside the camera in its plane (view-space
+    depth about 2e-7) is culled, and the loss does not depend on it.  Its
+    projection terms overflow there; the adjoint chain drops them, as
+    ``gsbench/reference/splat.py::preprocess_grads`` does, rather than
+    multiplying them by nought: its position, scale and rotation gradients
+    are finite and zero, and the others' are those of the same scene with
+    it culled behind the camera."""
+    rng = np.random.default_rng(5)
+    size = 32
+    cam = scenes.example_camera(width=size, height=size)
+    pts, shs, scales, rotations, opacities = scenes.random_scene(rng, n=12)
+    target = torch.tensor(rng.uniform(0, 1, (size, size, 3)),
+                          dtype=torch.float32)
+    view = torch.tensor(cam["view"])
+    inv = torch.linalg.inv(view.double())
+    settings = RenderSettings(width=size, height=size, pair_capacity=1 << 12,
+                              parity=parity)
+
+    def grads_with_first_at(view_point):
+        p = pts.copy()
+        p[0] = (torch.tensor(view_point + [1.0], dtype=torch.float64)
+                @ inv)[:3].float().numpy()
+        tp = [torch.tensor(x, requires_grad=True)
+              for x in (p, scales, rotations, opacities, shs)]
+        img, _, aux = TR.render(settings, cam["tan_fovx"], cam["tan_fovy"],
+                                1.0, *tp, view, torch.tensor(cam["proj"]),
+                                torch.tensor(cam["campos"]), torch.zeros(3))
+        assert int(aux.radii[0]) == 0
+        loss = (img - target).abs().mean()
+        return loss.item(), torch.autograd.grad(loss, tp), p[0]
+
+    loss_behind, behind, _ = grads_with_first_at([0.0, 0.0, -1.0])
+    loss, in_plane, first = grads_with_first_at([2.0, 0.0, 0.0])
+    depth = float(torch.tensor(list(first) + [1.0]) @ view[:, 2])
+    assert abs(depth) < 1e-6
+    assert loss == loss_behind
+    for name, g, b in zip(("positions", "scales", "rotations", "opacities",
+                           "shs"), in_plane, behind):
+        assert torch.isfinite(g).all(), name
+        assert float(g[0].abs().max()) == 0.0, name
+        assert torch.equal(g[1:], b[1:]), name

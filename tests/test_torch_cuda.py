@@ -38,6 +38,7 @@ from gstpu_torch.ops import cuda_rasterize
 from gstpu_torch.ops import rasterize
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.preprocess import preprocess
+from gstpu_torch.utils import tracing
 
 
 def _cuda():
@@ -73,10 +74,10 @@ def _gate_backward_inputs(device):
 @pytest.mark.parametrize("case", ["gate", "span_edges"])
 def test_kernel_matches_plain_cuda(case):
     settings, prep, pairs = _case(case, _cuda())
-    before = cuda_rasterize.LAUNCHES["rasterize_fwd"]
+    before = tracing.COUNTERS["k1.launches"]
     got = cuda_rasterize.composite_forward(prep, pairs, settings)
     torch.cuda.synchronize()
-    assert cuda_rasterize.LAUNCHES["rasterize_fwd"] == before + 1
+    assert tracing.COUNTERS["k1.launches"] == before + 1
     assert got[3].dtype == torch.int32
     compare(case, _numpy(got),
             _numpy(rasterize.composite_forward(prep, pairs, settings)))
@@ -84,23 +85,23 @@ def test_kernel_matches_plain_cuda(case):
 
 def test_kernel_wrapper_rejects_bad_pairs_cuda():
     settings, prep, pairs = _case("span_edges", _cuda())
-    before = dict(cuda_rasterize.LAUNCHES)
+    before = dict(tracing.COUNTERS)
     with pytest.raises(TypeError, match="tile_start"):
         cuda_rasterize.composite_forward(
             prep, pairs._replace(tile_start=pairs.tile_start.long()), settings)
     with pytest.raises(ValueError, match="tile_count"):
         cuda_rasterize.composite_forward(
             prep, pairs._replace(tile_count=pairs.tile_count[:-1]), settings)
-    assert cuda_rasterize.LAUNCHES == before
+    assert tracing.COUNTERS == before
 
 
 def test_backward_kernel_matches_gate_and_plain_cuda():
     settings, prep, pairs = _case("gate", _cuda())
     g, inputs = _gate_backward_inputs(prep.xy.device)
-    before = cuda_rasterize.LAUNCHES["rasterize_bwd"]
+    before = tracing.COUNTERS["k2.launches"]
     got = cuda_rasterize.composite_backward(prep, pairs, settings, **inputs)
     torch.cuda.synchronize()
-    assert cuda_rasterize.LAUNCHES["rasterize_bwd"] == before + 1
+    assert tracing.COUNTERS["k2.launches"] == before + 1
     check_grads("gate", got, tuple(g[f"g_{k}"] for k in GRAD_NAMES),
                 flip_tolerant=False)
     check_grads("gate vs plain", got, rasterize.composite_backward(
@@ -121,14 +122,14 @@ def test_backward_kernel_rows_are_deterministic_and_zero_past_the_tiles_cuda():
 def test_backward_kernel_wrapper_rejects_bad_inputs_cuda():
     settings, prep, pairs = _case("gate", _cuda())
     _, inputs = _gate_backward_inputs(prep.xy.device)
-    before = dict(cuda_rasterize.LAUNCHES)
+    before = dict(tracing.COUNTERS)
     with pytest.raises(ValueError, match="dl_dpix"):
         cuda_rasterize.backward_rows(prep, pairs, settings, **{
             **inputs, "dl_dpix": inputs["dl_dpix"][:-1]})
     with pytest.raises(TypeError, match="final_t"):
         cuda_rasterize.backward_rows(prep, pairs, settings, **{
             **inputs, "final_t": inputs["final_t"].double()})
-    assert cuda_rasterize.LAUNCHES == before
+    assert tracing.COUNTERS == before
 
 
 def test_backward_kernel_on_a_row_band_matches_plain_cuda():
@@ -198,10 +199,10 @@ def _gate_band(device, row0=1, stride=2):
 
 def test_forward_kernel_checkpoints_cuda():
     settings, prep, pairs = _case("gate", _cuda())
-    before = dict(cuda_rasterize.CTAS)
+    before = dict(tracing.COUNTERS)
     res = k1_checkpoint_checks("gate", prep, pairs, settings)
     assert res["ok"] and res["checkpoints_compared"] > 0
-    launched = cuda_rasterize.CTAS["rasterize_fwd"] - before["rasterize_fwd"]
+    launched = tracing.COUNTERS["k1.ctas"] - before["k1.ctas"]
     # each launch (two, and one per checkpoint compared) reports its grid:
     # one CTA per 64-pixel strip of every tile
     assert launched > 0
@@ -217,17 +218,17 @@ def test_segmented_backward_kernel_matches_whole_tiles_and_plain_cuda(case):
     else:
         settings, prep, pairs, inputs = _gate_band(device)
     assert int(pairs.tile_count.max()) > cuda_rasterize.SEGMENT
-    before = cuda_rasterize.LAUNCHES["rasterize_bwd"]
-    ctas = cuda_rasterize.CTAS["rasterize_bwd"]
+    before = tracing.COUNTERS["k2.launches"]
+    ctas = tracing.COUNTERS["k2.ctas"]
     k2_segmented_checks(case, prep, pairs, settings, inputs)
     torch.cuda.synchronize()
-    assert cuda_rasterize.LAUNCHES["rasterize_bwd"] == before + 3
+    assert tracing.COUNTERS["k2.launches"] == before + 3
     # two launches over the work list's bound of items, one from T = 1 over
     # the tiles
     bound = cuda_rasterize.work_capacity(settings.band_tiles,
                                          pairs.gauss_id.shape[0],
                                          cuda_rasterize.SEGMENT)
-    assert (cuda_rasterize.CTAS["rasterize_bwd"] - ctas
+    assert (tracing.COUNTERS["k2.ctas"] - ctas
             == 2 * bound + settings.band_tiles)
     *_, ckpt = cuda_rasterize.composite_forward_checkpointed(
         prep, pairs, settings, row0=inputs.get("row0", 0))
@@ -259,7 +260,7 @@ def test_backward_kernel_wrapper_rejects_bad_checkpoints_cuda():
     *_, ckpt = cuda_rasterize.composite_forward_checkpointed(prep, pairs,
                                                              settings)
     work = ckpt.work
-    before = dict(cuda_rasterize.LAUNCHES)
+    before = dict(tracing.COUNTERS)
     for bad in (ckpt._replace(state=ckpt.state[:, :5]),
                 ckpt._replace(state=ckpt.state.double()),
                 ckpt._replace(state=ckpt.state.cpu()),
@@ -270,7 +271,7 @@ def test_backward_kernel_wrapper_rejects_bad_checkpoints_cuda():
         with pytest.raises(ValueError):
             cuda_rasterize.backward_rows(prep, pairs, settings, **inputs,
                                          checkpoints=bad)
-    assert cuda_rasterize.LAUNCHES == before
+    assert tracing.COUNTERS == before
 
 
 @pytest.mark.parametrize("backward", [False, True])

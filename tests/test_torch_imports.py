@@ -34,7 +34,7 @@ def test_port_imports_no_jax_flax_or_gstpu():
                  "data.colmap", "train", "utils.image", "eval_model",
                  "render_turntable", "parallel", "parallel.mesh",
                  "parallel.multihost", "parallel.collectives",
-                 "parallel.sharded"):
+                 "parallel.sharded", "utils.tracing"):
         assert f"gstpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -50,9 +50,7 @@ def test_port_imports_no_jax_flax_or_gstpu():
 
 def test_sources_name_no_jax_flax_or_gstpu_import():
     files = sorted((ROOT / "gstpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_render.py",
-        ROOT / "scripts" / "torch_profile_train.py",
-        ROOT / "tests" / "test_torch_cuda.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
     for name in ("sol_model.py", "bench.py", "bench_suite.py",
                  "ops/kernel_check.py", "ops/cuda_build.py", "data/nerf.py",
                  "densify.py", "data/colmap.py", "train.py", "utils/image.py",

@@ -27,6 +27,7 @@ from gstpu_torch import scenes as torch_scenes
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize
 from gstpu_torch.ops import rasterize as TR
+from gstpu_torch.utils import tracing
 
 
 def _small_scene(seed, opac, n=80, size=64):
@@ -108,10 +109,10 @@ def test_kernel_wrapper_runs_plain_version_on_cpu():
     settings, prep_np, pairs_np = torch_scenes.span_edge_case()
     prep = convert.prep_from_numpy(prep_np, "cpu", prefix="")
     pairs = convert.pairs_from_numpy(pairs_np, "cpu", prefix="")
-    before = dict(cuda_rasterize.LAUNCHES)
+    before = dict(tracing.COUNTERS)
     got = cuda_rasterize.composite_forward(prep, pairs, settings)
     want = TR.composite_forward(prep, pairs, settings)
-    assert cuda_rasterize.LAUNCHES == before
+    assert tracing.COUNTERS == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

@@ -28,6 +28,7 @@ import chip_smoke
 from gstpu_torch import scenes, sol_model
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import cuda_rasterize, rasterize
+from gstpu_torch.utils import tracing
 
 
 def test_recording_checkpoints_sees_each_render_and_restores():
@@ -63,7 +64,7 @@ def test_load_wrapper_uses_the_given_libraries_and_their_own_types():
     libs = _fake_libs()
     module = chip_smoke.load_wrapper(cuda_rasterize.__file__, libs)
     assert module is not cuda_rasterize
-    assert module.LAUNCHES is not cuda_rasterize.LAUNCHES
+    assert module.tracing.COUNTERS is not tracing.COUNTERS
     assert module.cuda_build.library("rasterize_bwd") is libs["rasterize_bwd"]
     assert module.cuda_build.device_index is not None
     # the module's own interface: this tree's, as the file is this tree's
@@ -189,15 +190,13 @@ class _FakeEvent:
 
 
 def test_uncounted_puts_the_launch_counts_back():
-    launches = dict(cuda_rasterize.LAUNCHES)
-    ctas = dict(cuda_rasterize.CTAS)
+    counts = dict(tracing.COUNTERS)
     with pytest.raises(KeyError):
         with chip_smoke.uncounted():
-            cuda_rasterize.LAUNCHES["rasterize_fwd"] += 3
-            cuda_rasterize.CTAS["rasterize_bwd"] += 7
+            tracing.COUNTERS.add("k1.launches", 3)
+            tracing.COUNTERS.add("k2.ctas", 7)
             raise KeyError("inside")
-    assert cuda_rasterize.LAUNCHES == launches
-    assert cuda_rasterize.CTAS == ctas
+    assert tracing.COUNTERS == counts
 
 
 def test_trainer_probe_checks_a_step_and_an_eval_render(tmp_path,
