@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and build: versions, the card's name and power limit, and the
    nvcc builds of every kernel (K1, csrc/rasterize_fwd.cu; K2,
-   csrc/rasterize_bwd.cu; K3, csrc/sol_compositing.cu), started together,
+   csrc/rasterize_bwd.cu; K3, csrc/sol_compositing.cu; binning,
+   csrc/binning.cu), started together,
    with ptxas's registers, shared memory and spills;
 2. K1 against its plain PyTorch version on the card and against the stored
    JAX outputs, on (a) the stored gate (tests/golden/pallas_gate.npz,
@@ -16,13 +17,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    enough that every tile is occupied; on (a) and (c), K1 asked for
    checkpoints gives bit-identical outputs, writes the work items of their
    plain version, and each checkpoint k is bit-equal to K1's final T, color
-   and inverse depth on the tile counts cut to k * segment;
+   and inverse depth on the tile counts cut to k * segment; and the binning
+   kernels on the gate's stored prep against the stored JAX pairs, every
+   ``Pairs`` field bit for bit;
 3. the render path: ``render_gaussians`` on the trained Lego point cloud
    (assets/lego_trained.ply, 129,053 Gaussians, SH degree 3) at 800x800
    from four orbit views, plus one ``render_forward`` view with
    tight_radius, pair_cull and a fitted kept_capacity; the launch counts
-   are zeroed just before and read just after, and every image is held
-   against the plain version's image of the same view;
+   are zeroed just before and read just after (one binning and one K1
+   launch a view), and every image is held against the plain version's
+   image of the same view;
 4. render times with CUDA events (medians after a warm-up), K1's bare
    time (``bare_ms``) and its wrapper's (``time_ms``), K1's bound, and a
    ``walk`` line per view (orbit and close): the tiles' pair counts, the
@@ -41,7 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    perturbed trained Lego (capacity 193,579 with the alive mask), in the
    trainer's camera order over 8 orbit views whose targets are the port's
    renders of the unperturbed Lego; the launch counts are zeroed just
-   before and read just after (one K1 and one K2 launch per step), with the
+   before and read just after (one binning, one K1 and one K2 launch per
+   step), with the
    CTAs each launch started (``tracing.COUNTERS``); K2 runs from the
    checkpoints K1 returned (recorded as the render receives them) with
    more work items than tiles, no step overflows, loss and gradients are
@@ -61,8 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    its plain version's;
 11. the port's bench (``gstpu_torch.bench.main``): the kernel gate with
    ``preprocess_backend_parity``, the headline (100k Gaussians, 800x800,
-   fitted capacities) with exactly one K1 and one K2 launch per timed
-   iteration (counts zeroed before, read after), the trained-scene
+   fitted capacities) with exactly one binning, one K1 and one K2 launch
+   per timed iteration (counts zeroed before, read after), the trained-scene
    companion, ``vs_sol`` from phase 10's model; one headline iteration
    against the same with the plain compositing; then the bench suite
    (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric;
@@ -73,14 +78,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the default GSConfig, 60 steps, densify events at 20 and 40, holdout 8:
    14 train and 2 val/test views) with the launch counts zeroed just before
    and read just after: one K2 launch per step run (replays included), at
-   least one K1 launch per step and per eval render; a densify event that
+   least one K1 launch per step and per eval render, one binning per K1
+   launch; a densify event that
    changes the topology, every overflow replayed, finite losses whose last
    10 average below the first 10, eval and test PSNR, the PLY, cameras,
    losses, metrics and states written; the median step time (CUDA events),
    each densify event's time and the eval renders'; then a resume from the
    state at 30 that starts at 31 and writes the rest of loss.txt;
-13. the CLIs, through their ``main``s, with K1's launches counted over
-   each: ``python -m gstpu_torch.render`` writes the 1800x1800 example
+13. the CLIs, through their ``main``s, with K1's and binning's launches
+   counted over each (one binning per K1 launch): ``python -m gstpu_torch.render`` writes the 1800x1800 example
    (held against the plain compositing at K1's tolerances, the PNG equal to
    the render); ``python -m gstpu_torch.eval_model`` on phase 12's PLY and
    its capture's test split (its PSNR within 0.01 dB of phase 12's test
@@ -96,7 +102,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``parallel/collectives.py`` sends from the card is refused); for meshes (n_data, n_model) = (1, 2) and
    (2, 2), child processes each take one sharded step (``parallel/
    sharded.py``) from the capture's initial model (capacity 193,580) with
-   one K1 and one K2 launch per rank (counted over the step), hold K1 on
+   one binning, one K1 and one K2 launch per rank (counted over the step),
+   hold K1 on
    their band, K1's checkpoints there and the step's gradients against the
    plain compositing at that band, and render one frame from their bands;
    the loss and the gathered gradients are held against the
@@ -105,11 +112,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    at K1's; then ``python -m gstpu_torch.train --n-model 2 --n-data 2`` as
    4 ranks for 30 steps with a densify event at 20: every exit code within
    the timeout, one K1 and one K2 launch per step on each rank (rank 0 also
-   K1 per eval render), the same model on every rank after the densify
+   K1 per eval render) and one binning per K1 launch, the same model on every rank after the densify
    event, finite losses, rank 0's outputs.  Each group of children is
    killed after SHARDED_TIMEOUT_S seconds.  The step times and the bytes of
    each collective are transport through host memory on one card: they say
-   nothing of scaling.
+   nothing of scaling;
+15. binning (``phase_binning``): the kernels of csrc/binning.cu at the
+   benchmark's mip360-view shapes from seeded inputs, without and with the
+   pair cull and a kept capacity, against the plain
+   ``ops/binning.py::build_pairs`` on the card (every ``Pairs`` field bit
+   for bit, twice), one ``binning.launches`` a call; the bare times of the
+   duplicate kernel, CUB's sort and the finish kernel beside their byte
+   bounds, ``torch.sort`` of the same keys, the wrapper and the plain
+   version; ptxas's registers and spills of the two kernels.
 
 Times.  ``ms`` on the kernels line is the bare kernel (``bare_ms``: the
 launch that the wrapper makes, repeated 20 times back to back between two
@@ -169,8 +184,9 @@ from gstpu_torch.data.colmap import ColmapDataset
 from gstpu_torch.models.gaussians import (SH_C0, GaussianModel,
                                           activate_params, grow_capacity,
                                           init_model_from_points)
-from gstpu_torch.ops import cuda_build, cuda_rasterize, kernel_check, rasterize
-from gstpu_torch.ops.binning import build_pairs
+from gstpu_torch.ops import (binning, cuda_binning, cuda_build,
+                             cuda_rasterize, kernel_check, rasterize)
+from gstpu_torch.ops.cuda_binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss, l1_pixel_gradients
 from gstpu_torch.ops.preprocess import preprocess
 from gstpu_torch.optim import adam_step, init_adam_state, schedule_lrs
@@ -286,8 +302,10 @@ PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
 # launches each: {wrapper file: library names}
 PARENT_WRAPPERS = {"cuda_rasterize.py": ("rasterize_fwd", "rasterize_bwd"),
                    "sol_model.py": ("sol_compositing",)}
-# K1's and K2's counters in the port's registry: {kernel: key prefix}
-KERNEL_COUNTERS = {"rasterize_fwd": "k1", "rasterize_bwd": "k2"}
+# The main path's launch counters in the port's registry: {kernel: key
+# prefix}; K1 and K2 count their CTAs too, binning only its launches
+KERNEL_COUNTERS = {"rasterize_fwd": "k1", "rasterize_bwd": "k2",
+                   "binning": "binning"}
 
 
 def log(**kw) -> None:
@@ -762,12 +780,20 @@ def k1_vs_previous(name: str, previous, prep, pairs, settings) -> bool:
 
 
 def phase_kernel_checks(params, size: int, device, previous=None) -> float:
-    """K1 against the plain version (and the stored JAX outputs on the
-    gate), K1 with checkpoints against K1 without and against K1 on cut
-    counts, and against the parent's K1 when given; returns the max color
+    """The binning kernels against the stored JAX pairs on the gate; K1
+    against the plain version (and the stored JAX outputs on the gate), K1
+    with checkpoints against K1 without and against K1 on cut counts, and
+    against the parent's K1 when given; returns the max color
     error off boundary at the Lego view."""
     log(phase=2)
     gate = kernel_check.load_gate(device)
+    gs = gate.settings
+    differ = pairs_equal(build_pairs(gate.prep.tiles_touched, gate.prep.rect,
+                                     gate.prep.depth, gs.grid_x, gs.num_tiles,
+                                     gs.pair_capacity), gate.pairs)
+    log(check="gate: binning kernels vs stored JAX pairs", differ=differ)
+    if differ:
+        raise RuntimeError(f"gate: binning differs from JAX's in {differ}")
     compare("gate: kernel vs stored JAX outputs",
             kernel_check.gate_forward(gate), gate.stored)
     kernel_vs_plain("gate", gate.prep, gate.pairs, gate.settings)
@@ -845,7 +871,8 @@ def phase_main_path(params, size: int, device, bg) -> int:
                      aux.final_t, aux.n_contrib))
         compare(f"{name}: kernel render vs plain render", got,
                 to_np(plain_outputs(params, cam, settings, bg)))
-    if counts != {"rasterize_fwd": len(renders), "rasterize_bwd": 0}:
+    if counts != {"rasterize_fwd": len(renders), "rasterize_bwd": 0,
+                  "binning": len(renders)}:
         raise RuntimeError(f"{counts} launches for {len(renders)} renders")
     return counts["rasterize_fwd"]
 
@@ -1199,7 +1226,7 @@ def phase_train(run: TrainRun) -> dict:
         finite_moments=finite_moments, finite_params=finite_params,
         k2_segments=sorted(set(segments)), k2_work_items=work_items,
         k2_item_tiles=item_tiles, steps_with_a_split_tile=sum(split))
-    if got != {"rasterize_fwd": TRAIN_STEPS, "rasterize_bwd": TRAIN_STEPS}:
+    if got != dict.fromkeys(KERNEL_COUNTERS, TRAIN_STEPS):
         raise RuntimeError(f"{got} launches for {TRAIN_STEPS} train steps")
     if set(segments) != {cuda_rasterize.SEGMENT} or work_items <= item_tiles:
         raise RuntimeError("the main path's K2 did not run from K1's "
@@ -1553,16 +1580,19 @@ def phase_bench(device, sol: dict) -> None:
     counts = launch_counts()
     extra = record["extra"]
     gate = extra.get("kernel_parity", {})
-    # the gate runs K1 and K2 once; the headline and the trained scene each
-    # run bench.RUNS timed fwd+bwd iterations
-    want = {k: 1 + 2 * bench.RUNS for k in counts}
+    # the gate runs K1 and K2 once on its stored pairs; the headline and the
+    # trained scene each bin once to fit their capacities and run bench.RUNS
+    # timed fwd+bwd iterations
+    want = {"rasterize_fwd": 1 + 2 * bench.RUNS,
+            "rasterize_bwd": 1 + 2 * bench.RUNS,
+            "binning": 2 + 2 * bench.RUNS}
     log(path="bench", launches=counts, expected=want,
         per_iteration=extra["launches_per_iteration"], gate=gate)
     problems = []
     if not (extra.get("kernel_parity_ok") and gate.get("prep_ok")):
         problems.append("the kernel gate failed")
-    if extra["launches_per_iteration"] != {f"{k}.launches": 1.0 for k in
-                                           KERNEL_COUNTERS.values()} \
+    if extra["launches_per_iteration"] != {"k1.launches": 1.0,
+                                           "k2.launches": 1.0} \
             or counts != want:
         problems.append(f"launches {counts}, per iteration "
                         f"{extra['launches_per_iteration']}")
@@ -1667,10 +1697,9 @@ def capture_readback_error(root: Path, cams) -> float:
 
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside compare a kernel with its plain version: K1's and
-    K2's launch and CTA counts are put back on leaving."""
-    keys = [f"{k}.{what}" for k in KERNEL_COUNTERS.values()
-            for what in ("launches", "ctas")]
+    """Launches inside compare a kernel with its plain version: K1's, K2's
+    and binning's launch and CTA counts are put back on leaving."""
+    keys = _counter_keys("launches", "ctas")
     saved = {k: tracing.COUNTERS[k] for k in keys}
     try:
         yield
@@ -1891,8 +1920,10 @@ def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
         problems.append(f"kernels held against the plain versions at "
                         f"{sorted(probe.checks)}, not at a step and an eval "
                         "render")
+    # every forward, a step's, a replay's or an eval render's, bins once
     if got.get("rasterize_bwd") != steps_run \
-            or got.get("rasterize_fwd", 0) < steps_run + renders:
+            or got.get("rasterize_fwd", 0) < steps_run + renders \
+            or got.get("binning") != got.get("rasterize_fwd"):
         problems.append(f"launches {got} for {steps_run} steps and "
                         f"{renders} eval renders")
     if not any(e["cloned"] or e["split"] or e["pruned"] for e in densify):
@@ -1931,20 +1962,27 @@ def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
     return got
 
 
+def _counter_keys(*whats: str) -> list:
+    """The registry's keys of ``KERNEL_COUNTERS`` for each of ``whats``."""
+    return [f"{k}.{what}" for k in KERNEL_COUNTERS.values() for what in whats
+            if f"{k}.{what}" in tracing.COUNTERS]
+
+
 def launch_counts(what: str = "launches") -> dict:
-    """K1's and K2's launches so far (or, with ``"ctas"``, the CTAs they
-    started), by kernel, from the port's counters."""
+    """K1's, K2's and binning's launches so far (or, with ``"ctas"``, the
+    CTAs that K1 and K2 started), by kernel, from the port's counters."""
     return {name: tracing.COUNTERS[f"{k}.{what}"]
-            for name, k in KERNEL_COUNTERS.items()}
+            for name, k in KERNEL_COUNTERS.items()
+            if f"{k}.{what}" in tracing.COUNTERS}
 
 
 def zero_launches() -> None:
-    """Set K1's and K2's launch and CTA counts to 0 (after the card is
-    idle)."""
+    """Set K1's, K2's and binning's launch and CTA counts to 0 (after the
+    card is idle)."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    for k in KERNEL_COUNTERS.values():
-        tracing.COUNTERS[f"{k}.launches"] = tracing.COUNTERS[f"{k}.ctas"] = 0
+    for key in _counter_keys("launches", "ctas"):
+        tracing.COUNTERS[key] = 0
 
 
 def example_vs_plain(size: int, device) -> dict:
@@ -2084,7 +2122,10 @@ def phase_clis(device, root: Path = CAPTURE_DIR) -> dict:
         raise RuntimeError("the turntable CLI failed its checks")
     if any(c["rasterize_bwd"] for c in counts.values()):
         raise RuntimeError(f"a render CLI launched K2: {counts}")
-    return {k: c["rasterize_fwd"] for k, c in counts.items()}
+    if any(c["binning"] != c["rasterize_fwd"] for c in counts.values()):
+        raise RuntimeError(f"a render CLI's renders did not each bin once "
+                           f"through the kernels: {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2457,11 +2498,11 @@ def sharded_step_check(inputs: dict, inputs_path: Path, device, n_data: int,
                     "transport through host memory and say nothing of "
                     "NVLink scaling"}
     log(path=name, **line)
-    if any(r["launches"] != {"rasterize_fwd": 1, "rasterize_bwd": 1}
+    if any(r["launches"] != dict.fromkeys(KERNEL_COUNTERS, 1)
            for r in ranks):
         raise RuntimeError(f"{name}: launches in one step per rank "
-                           f"{line['launches_per_rank']}, not one K1 and one "
-                           "K2 each")
+                           f"{line['launches_per_rank']}, not one binning, "
+                           "one K1 and one K2 each")
     return {"launches": [r["launches"] for r in ranks],
             "k1_band_color_err": max(r["checks"]["k1_band"]["color_err"]
                                      for r in ranks),
@@ -2516,12 +2557,12 @@ def sharded_training(capture: Path, out: Path, logs: Path, device) -> dict:
     log(path="sharded training", **line)
     problems = []
     for r in runs:
-        k1, k2 = (r["counters"][f"{k}.launches"]
-                  for k in KERNEL_COUNTERS.values())
+        k1, k2, bins = (r["counters"][f"{k}.launches"]
+                        for k in ("k1", "k2", "binning"))
         if k2 != r["steps_run"] or (k1 != r["steps_run"] if r["rank"]
-                                    else k1 < r["steps_run"]):
-            problems.append(f"rank {r['rank']}: launches {k1} / {k2} for "
-                            f"{r['steps_run']} steps")
+                                    else k1 < r["steps_run"]) or bins != k1:
+            problems.append(f"rank {r['rank']}: launches {k1} / {k2}, "
+                            f"binning {bins}, for {r['steps_run']} steps")
         if r["iteration"] != SHARDED_TRAIN_STEPS:
             problems.append(f"rank {r['rank']} ended at {r['iteration']}")
     digests = [r["densify_digests"] for r in runs]
@@ -2556,6 +2597,155 @@ def phase_multirank(device, root: Path = CAPTURE_DIR) -> dict:
             base / f"step_{n_data}x{n_model}")
     out["training"] = sharded_training(capture, base / "train_out",
                                        base / "train", device)
+    return out
+
+
+# Phase 15, binning: the shapes of the benchmark's mip360-view cell (2.96M
+# Gaussians at 1237x822, 78 x 52 tiles, 32.8M pair slots) from seeded
+# inputs (``binning_inputs``), without and with the training step's pair
+# cull and kept capacity.
+BINNING_GAUSSIANS = 2_960_000
+BINNING_SIZE = (1237, 822)
+BINNING_CAPACITY = 32_833_536
+BINNING_SEED = 14
+BINNING_FUNCTIONS = ("gstpu_binning_duplicate", "gstpu_binning_sort",
+                     "gstpu_binning_finish")
+
+
+def binning_inputs(seed: int, n: int, grid_x: int, grid_y: int, device,
+                   side: float = 1.86, hidden: float = 0.1,
+                   tied: float = 0.25) -> dict:
+    """Seeded ``build_pairs`` inputs for n Gaussians on a grid_x x grid_y
+    tile grid: rect sides 1 + Poisson(side) tiles (7.3 pairs a visible
+    Gaussian at 1.86), a share ``hidden`` with no tiles (rect and depth 0,
+    as preprocess leaves them), depths uniform in [0.2, 60) of which a share
+    ``tied`` takes one of 16 values, splat centers near their rect's
+    centre, cull thresholds up to about the rect's squared half-diagonal
+    (some inf)."""
+    rng = np.random.default_rng(seed)
+    w = np.minimum(1 + rng.poisson(side, n), grid_x)
+    h = np.minimum(1 + rng.poisson(side, n), grid_y)
+    x0 = rng.integers(0, grid_x - w + 1)
+    y0 = rng.integers(0, grid_y - h + 1)
+    rect = np.stack([x0, y0, x0 + w, y0 + h], axis=1).astype(np.int32)
+    hide = rng.random(n) < hidden
+    rect[hide] = 0
+    tiles = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])).astype(
+        np.int32)
+    depth = rng.uniform(0.2, 60.0, n).astype(np.float32)
+    tie = rng.random(n) < tied
+    depth[tie] = rng.choice(np.arange(1, 17, dtype=np.float32), tie.sum())
+    depth[hide] = 0.0
+    centre = (rect[:, :2] + rect[:, 2:]) * 8.0
+    xy = (centre + rng.normal(0.0, 4.0, (n, 2))).astype(np.float32)
+    xy[hide] = 0.0
+    tcut = (64.0 * (w * w + h * h) * rng.uniform(0.15, 1.0, n)).astype(
+        np.float32)
+    tcut[rng.random(n) < 0.05] = np.inf
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return dict(tiles_touched=t(tiles), rect=t(rect), depth=t(depth),
+                cull_xy=t(xy), cull_tcut=t(tcut))
+
+
+def pairs_equal(got, want) -> list:
+    """The fields of two ``Pairs`` that differ in dtype, shape or any
+    element (none: bit for bit the same)."""
+    return [f for f, a, b in zip(got._fields, got, want)
+            if a.dtype != b.dtype or a.shape != b.shape
+            or not torch.equal(a, b)]
+
+
+def ptxas_facts(build_log: str, kernel: str) -> list:
+    """ptxas's lines on registers, shared memory and spills of the kernel
+    whose mangled name holds ``kernel``."""
+    lines, found = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            found = kernel in line
+        if found and ("Used" in line or "spill" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return lines
+
+
+def phase_binning(device, seed: int = BINNING_SEED) -> dict:
+    """Phase 15: the binning kernels (csrc/binning.cu) at mip360-view's
+    shapes, against the plain ``binning.build_pairs`` on the card (every
+    field bit for bit), without and with the pair cull; the bare times of
+    the duplicate kernel, the sort and the finish kernel, each beside its
+    byte bound, CUB's sort beside ``torch.sort`` of the same int64 keys, the
+    whole wrapper beside the plain version; ptxas's registers and spills."""
+    log(phase=15, gaussians=BINNING_GAUSSIANS, size=BINNING_SIZE,
+        capacity=BINNING_CAPACITY, seed=seed)
+    settings = RenderSettings(width=BINNING_SIZE[0], height=BINNING_SIZE[1],
+                              pair_capacity=BINNING_CAPACITY)
+    inp = binning_inputs(seed, BINNING_GAUSSIANS, settings.grid_x,
+                         settings.grid_y, device)
+    base = (inp["tiles_touched"], inp["rect"], inp["depth"], settings.grid_x,
+            settings.num_tiles, BINNING_CAPACITY)
+    probe = binning.build_pairs(*base, cull_xy=inp["cull_xy"],
+                                cull_tcut=inp["cull_tcut"])
+    kept = int(probe.num_kept)
+    del probe
+    forms = {"view": {},
+             "train": dict(cull_xy=inp["cull_xy"], cull_tcut=inp["cull_tcut"],
+                           kept_capacity=min(BINNING_CAPACITY,
+                                             round_capacity(kept * 1.05)))}
+    _, build_log, _ = cuda_build.build()["binning"]
+    sass = {k: ptxas_facts(build_log, k)
+            for k in ("duplicate_kernel", "finish_kernel")}
+    out = {}
+    for form, kw in forms.items():
+        want = binning.build_pairs(*base, **kw)
+        before = tracing.COUNTERS["binning.launches"]
+        got = build_pairs(*base, **kw)
+        torch.cuda.synchronize()
+        if tracing.COUNTERS["binning.launches"] != before + 1:
+            raise RuntimeError("binning: one wrapper call, not one launch")
+        differ = pairs_equal(got, want)
+        again = pairs_equal(build_pairs(*base, **kw), got)
+        total, kept_pairs = int(want.num_pairs), int(want.num_kept)
+        del want, got
+        log(check=f"binning {form}: kernels against the plain version",
+            differ=differ, rerun_differ=again, pairs=total, kept=kept_pairs)
+        if differ or again:
+            raise RuntimeError(f"binning {form}: {differ or again} differ")
+
+        def call():
+            return build_pairs(*base, **kw)
+
+        k, k2 = BINNING_CAPACITY, kw.get("kept_capacity", BINNING_CAPACITY)
+        n = BINNING_GAUSSIANS
+        cull = "cull_xy" in kw
+        end_bit = 32 + settings.num_tiles.bit_length()
+        filled = min(total, k)
+        nbytes = {
+            "gstpu_binning_duplicate": n * (36 + 12 * cull) + filled * 16
+            + (k - filled) * 12,
+            "gstpu_binning_sort": k * 8 + math.ceil(end_bit / 8) * k * 24,
+            "gstpu_binning_finish": k * 8 + k2 * 20 + (k - k2) * 8 * cull}
+        lib = cuda_binning._library()
+        parts = {}
+        for fname in BINNING_FUNCTIONS:
+            parts[fname] = {
+                "bare_ms": bare_ms(lib, fname, call),
+                "bytes": nbytes[fname],
+                "bound_ms": nbytes[fname] / PEAK_BYTES_PER_S * 1e3}
+        keys = cuda_binning.duplicate(
+            *base[:5], k, kw.get("cull_xy"), kw.get("cull_tcut"), 0, 1)[1][0]
+        torch_sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 10)
+        del keys
+        wrapper_ms = time_ms(call, 20)
+        plain_ms = time_ms(lambda: binning.build_pairs(*base, **kw), 5,
+                           warmup=1)
+        bound_ms = sum(p["bound_ms"] for p in parts.values())
+        out[form] = dict(parts=parts, torch_sort_ms=torch_sort_ms,
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, pairs=total, kept=kept_pairs,
+                         kept_capacity=k2, end_bit=end_bit)
+        log(binning=form, **out[form], sass=sass)
     return out
 
 
@@ -2597,13 +2787,15 @@ def main(argv=None) -> int:
     trainer_launches = phase_trainer(device, train_step_ms=train_step_ms)
     cli_launches = phase_clis(device)
     multirank = phase_multirank(device)
+    binning_times = phase_binning(device)
     kernels = [
         {"name": "rasterize_fwd (K1)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gstpu/ops/pallas_rasterize.py:160",
          "launches": launches["rasterize_fwd"],
          "trainer_launches": trainer_launches["rasterize_fwd"],
-         "cli_launches": cli_launches,
+         "cli_launches": {k: c["rasterize_fwd"]
+                          for k, c in cli_launches.items()},
          "sharded_step_launches": {
              m: [r["rasterize_fwd"] for r in v["launches"]]
              for m, v in multirank.items() if m != "training"},
@@ -2637,6 +2829,18 @@ def main(argv=None) -> int:
              "source": "gstpu_torch/csrc/sol_compositing.cu",
              "replaces": "scripts/sol_model.py:80", "max_abs_err": abs_err,
              "max_rel_err": rel_err, **k3_times[form], "library_ms": None})
+    kernels.append(
+        {"name": "binning (duplicate, sort, finish)", "route": "cuda",
+         "source": "gstpu_torch/csrc/binning.cu", "replaces": None,
+         "launches": launches["binning"],
+         "trainer_launches": trainer_launches["binning"],
+         "cli_launches": {k: c["binning"] for k, c in cli_launches.items()},
+         "sharded_step_launches": {
+             m: [r["binning"] for r in v["launches"]]
+             for m, v in multirank.items() if m != "training"},
+         "sharded_training_launches": [
+             r["binning"] for r in multirank["training"]["launches"]],
+         **binning_times, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

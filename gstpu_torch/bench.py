@@ -53,7 +53,7 @@ import torch
 from gstpu_torch import convert, scenes
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import kernel_check
-from gstpu_torch.ops.binning import build_pairs
+from gstpu_torch.ops.cuda_binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss
 from gstpu_torch.ops.preprocess import preprocess
 from gstpu_torch.ops.rasterize import pair_cull_threshold, render

@@ -7,7 +7,9 @@ source, a header or the flags change), and loaded with ctypes.  The wrapper
 modules set the argument types of their entry points:
 
 - ``rasterize_fwd`` (K1) and ``rasterize_bwd`` (K2): ``ops/cuda_rasterize.py``;
-- ``sol_compositing`` (K3): ``sol_model.py``.
+- ``sol_compositing`` (K3): ``sol_model.py``;
+- ``binning`` (the duplicate and finish kernels around CUB's radix sort):
+  ``ops/cuda_binning.py``.
 
 Each library also exports ``gstpu_cuda_error_string``.
 """
@@ -28,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"rasterize_fwd": CSRC / "rasterize_fwd.cu",
            "rasterize_bwd": CSRC / "rasterize_bwd.cu",
-           "sol_compositing": CSRC / "sol_compositing.cu"}
+           "sol_compositing": CSRC / "sol_compositing.cu",
+           "binning": CSRC / "binning.cu"}
 HEADERS = (CSRC / "composite_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gstpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -111,3 +114,20 @@ def raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 def device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype, device, shape=None,
+                 align: int = 1) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor on ``device`` of
+    ``shape`` (any shape for None) whose data starts on an ``align``-byte
+    boundary: what a kernel's wrapper checks before it passes a pointer."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")

@@ -148,17 +148,6 @@ def _gaussian_table(prep: PreprocessOut) -> torch.Tensor:
                      dim=1).contiguous()
 
 
-def _check(name: str, x: torch.Tensor, dtype, device, shape=None) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_inputs(prep: PreprocessOut, pairs: Pairs,
                   settings: RenderSettings) -> torch.device:
     """Device of the inputs of a kernel launch; raises on a tensor it does
@@ -174,11 +163,12 @@ def _check_inputs(prep: PreprocessOut, pairs: Pairs,
             raise ValueError(f"prep.{name}: expected {n} float32 rows on "
                              f"{dev}, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device}")
-    _check("pairs.gauss_id", pairs.gauss_id, torch.int32, dev)
+    check = cuda_build.check_tensor
+    check("pairs.gauss_id", pairs.gauss_id, torch.int32, dev)
     if pairs.gauss_id.dim() != 1:
         raise ValueError("pairs.gauss_id must be 1-D")
-    _check("pairs.tile_start", pairs.tile_start, torch.int32, dev, (t,))
-    _check("pairs.tile_count", pairs.tile_count, torch.int32, dev, (t,))
+    check("pairs.tile_start", pairs.tile_start, torch.int32, dev, (t,))
+    check("pairs.tile_count", pairs.tile_count, torch.int32, dev, (t,))
     return dev
 
 
@@ -306,7 +296,7 @@ def backward_rows(prep: PreprocessOut, pairs: Pairs, settings: RenderSettings,
             ("depth_acc", depth_acc, (t, TILE_PIXELS)),
             ("dl_ddepth", dl_ddepth, (t, TILE_PIXELS)),
             ("bg", bg, (3,))):
-        _check(name, x, torch.float32, dev, shape)
+        cuda_build.check_tensor(name, x, torch.float32, dev, shape)
     rows = torch.zeros((k2 + 1, len(rasterize.PAIR_ROW_FIELDS)),
                        dtype=torch.float32, device=dev)
     if t == 0:

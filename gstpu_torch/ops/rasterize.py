@@ -18,8 +18,10 @@ epilogue that turns the backward kernel's per-pair rows into per-Gaussian
 gradients.
 
 ``render`` is the differentiable render (a ``torch.autograd.Function``):
-preprocess, binning, compositing, background and tiles back to an image,
-with the hand-written backward of the JAX package's custom VJP.
+preprocess, binning (``ops/cuda_binning.py``: the binning kernels for CUDA
+tensors, the plain version on the CPU), compositing, background and tiles
+back to an image, with the hand-written backward of the JAX package's
+custom VJP.
 ``render_forward`` runs the same forward without autograd.
 
 Sharded (``settings.shard_axis``, the name of an axis of the ``mesh`` that
@@ -40,8 +42,8 @@ from typing import NamedTuple
 import torch
 
 from gstpu_torch.config import RenderSettings, TILE_PIXELS, TILE_X, TILE_Y
-from gstpu_torch.ops import preprocess_bwd
-from gstpu_torch.ops.binning import Pairs, build_pairs
+from gstpu_torch.ops import cuda_binning, preprocess_bwd
+from gstpu_torch.ops.binning import Pairs
 from gstpu_torch.ops.preprocess import PreprocessOut, preprocess
 from gstpu_torch.utils import tracing
 
@@ -483,12 +485,11 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
         if settings.pair_cull:
             cull_tcut = pair_cull_threshold(prep)
             cull_xy = prep.xy
-        pairs = build_pairs(tiles_band, rect_band, prep.depth,
-                            settings.grid_x, settings.band_tiles,
-                            settings.pair_capacity, cull_xy=cull_xy,
-                            cull_tcut=cull_tcut, row0=row0,
-                            row_stride=settings.row_stride,
-                            kept_capacity=settings.kept_capacity)
+        pairs = cuda_binning.build_pairs(
+            tiles_band, rect_band, prep.depth, settings.grid_x,
+            settings.band_tiles, settings.pair_capacity, cull_xy=cull_xy,
+            cull_tcut=cull_tcut, row0=row0, row_stride=settings.row_stride,
+            kept_capacity=settings.kept_capacity)
     with tracing.span("forward.composite"):
         color, dacc, final_t, n_contrib, *rest = composite_fwd(
             prep, pairs, settings, row0=row0)

@@ -15,7 +15,11 @@ the plain versions; the wrappers' checks of work lists and
 checkpoint buffers; K3 within
 ``chip_smoke.K3_FWD_TOL`` (forward, absolute) and ``K3_BWD_REL_TOL``
 (backward, over each row's largest magnitude), every tile bit-identical,
-and no launch for 0 tiles.
+and no launch for 0 tiles; the binning kernels (``csrc/binning.cu``)
+against the plain ``binning.build_pairs`` on the card, every ``Pairs``
+field bit for bit, on the gate (cull off, where they are also the stored
+JAX pairs, and on, a kept capacity, a round-robin band), an overflow, equal depths, tiles with no pair and 3M
+seeded Gaussians in 32M slots, and the wrapper's checks.
 
 This file imports nothing of JAX, so it runs on a machine without it once
 ``tests/conftest.py`` (which imports jax) is left out:
@@ -29,12 +33,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import (GRAD_NAMES, K3_BWD_REL_TOL, K3_FWD_TOL, check_grads,
                         compare, k1_checkpoint_checks, k2_segmented_checks,
                         kernel_vs_plain)
 from gstpu_torch import convert, scenes, sol_model
 from gstpu_torch.config import RenderSettings
-from gstpu_torch.ops import cuda_rasterize
+from gstpu_torch.ops import binning, cuda_binning, cuda_rasterize
 from gstpu_torch.ops import rasterize
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.preprocess import preprocess
@@ -316,3 +321,135 @@ def test_k3_wrapper_rejects_bad_blocks_cuda():
         with pytest.raises(ValueError, match=">= 0"):
             sol_model.sol_compositing(feat, n_chunks, tiles, False)
     assert sol_model.LAUNCHES == before
+
+
+# --- binning: csrc/binning.cu against the plain binning.build_pairs ---
+
+def _binning_gate(device, case):
+    """The gate's prep binned as ``_render_fwd`` bins it: (args, kwargs)
+    of ``build_pairs`` for the whole grid or the band of rows 1, 3, ..., 9,
+    with the pair cull on unless ``case`` is "cull_off"."""
+    g = np.load(scenes.GATE_NPZ)
+    prep = convert.prep_from_numpy(g, device)
+    row0, stride, rows = (1, 2, 5) if case == "band" else (0, 1, 10)
+    rect, tiles = rasterize.clip_rect_to_band(prep.rect, prep.tiles_touched,
+                                              row0, rows, stride)
+    kw = dict(row0=row0, row_stride=stride)
+    if case != "cull_off":
+        kw.update(cull_xy=prep.xy,
+                  cull_tcut=rasterize.pair_cull_threshold(prep))
+    return (tiles, rect, prep.depth, 10, 10 * rows, 1 << 16), kw
+
+
+def _shifted_inputs(device, seed=7):
+    """Seeded Gaussians on tiles 3-8 of 12 columns and rows 2-6 of 10, so
+    the first and last tiles and whole rows and columns get no pair."""
+    inp = chip_smoke.binning_inputs(seed, 5000, 6, 5, "cpu")
+    rect = inp["rect"].clone()
+    seen = inp["tiles_touched"] > 0
+    rect[seen] += torch.tensor([3, 2, 3, 2], dtype=torch.int32)
+    inp["rect"] = rect
+    inp["cull_xy"] += torch.tensor([48.0, 32.0]) * seen[:, None]
+    return {k: v.to(device) for k, v in inp.items()}
+
+
+def _kernels_match_plain(args, **kw):
+    """The kernels' ``Pairs`` (one counted launch) equal to the plain
+    version's on the card in every field; returns them."""
+    before = tracing.COUNTERS["binning.launches"]
+    got = cuda_binning.build_pairs(*args, **kw)
+    torch.cuda.synchronize()
+    assert tracing.COUNTERS["binning.launches"] == before + 1
+    assert chip_smoke.pairs_equal(got, binning.build_pairs(*args, **kw)) == []
+    return got
+
+
+@pytest.mark.parametrize("case", ["cull_off", "cull_on", "kept_capacity",
+                                  "band"])
+def test_binning_kernels_match_plain_on_the_gate_cuda(case):
+    args, kw = _binning_gate(_cuda(), case)
+    if case == "kept_capacity":
+        kept = int(binning.build_pairs(*args, **kw).num_kept)
+        kw["kept_capacity"] = -(-int(kept * 1.05) // 1024) * 1024
+    got = _kernels_match_plain(args, **kw)
+    if case == "cull_off":
+        # the whole grid at the stored capacity: JAX's pairs, bit for bit
+        stored = convert.pairs_from_numpy(np.load(scenes.GATE_NPZ), _cuda())
+        assert chip_smoke.pairs_equal(got, stored) == []
+    else:
+        assert int(got.num_kept) < int(got.num_pairs)
+    if case == "kept_capacity":
+        assert got.gauss_id.shape == (kw["kept_capacity"],)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_binning_kernels_match_plain_on_an_overflow_cuda(cull):
+    args, kw = _binning_gate(_cuda(), "cull_on" if cull else "cull_off")
+    args = args[:5] + (4096,)
+    got = _kernels_match_plain(args, **kw)
+    assert int(got.num_pairs) > 4096
+    assert int(got.tile_count.sum()) == (int(got.num_kept) if cull else 4096)
+
+
+def test_binning_kernels_keep_the_order_of_equal_depths_cuda():
+    inp = chip_smoke.binning_inputs(11, 20000, 8, 6, _cuda(), tied=1.0)
+    args = (inp["tiles_touched"], inp["rect"], inp["depth"], 8, 48, 1 << 18)
+    got = _kernels_match_plain(args)
+    kept = got.tile_id < 48
+    ties = (got.tile_id[1:] == got.tile_id[:-1]) & kept[1:] & (
+        inp["depth"][got.gauss_id[1:].long()]
+        == inp["depth"][got.gauss_id[:-1].long()])
+    assert int(ties.sum()) > 10000
+    # within a tile, equal depths stay in Gaussian order
+    assert bool((got.gauss_id[1:][ties] > got.gauss_id[:-1][ties]).all())
+
+
+@pytest.mark.parametrize("kept_capacity", [None, 0, 4096])
+def test_binning_kernels_on_tiles_with_no_pair_cuda(kept_capacity):
+    inp = _shifted_inputs(_cuda())
+    args = (inp["tiles_touched"], inp["rect"], inp["depth"], 12, 120,
+            1 << 16)
+    got = _kernels_match_plain(args, cull_xy=inp["cull_xy"],
+                               cull_tcut=inp["cull_tcut"],
+                               kept_capacity=kept_capacity)
+    if kept_capacity != 0:
+        empty = got.tile_count == 0
+        assert bool(empty[0]) and bool(empty[-1]) and int(empty.sum()) >= 70
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_binning_kernels_match_plain_at_3m_gaussians_cuda(cull):
+    """About 3M seeded Gaussians on mip360-view's 78 x 52 tiles in 32M
+    slots (7.3 pairs a visible Gaussian, two thirds of the slots filled);
+    two launches give the same bits."""
+    dev = _cuda()
+    inp = chip_smoke.binning_inputs(3, 3_000_000, 78, 52, dev)
+    args = (inp["tiles_touched"], inp["rect"], inp["depth"], 78, 4056,
+            32 << 20)
+    kw = {}
+    if cull:
+        kw = dict(cull_xy=inp["cull_xy"], cull_tcut=inp["cull_tcut"],
+                  kept_capacity=30 << 20)
+    got = _kernels_match_plain(args, **kw)
+    assert 19e6 < int(got.num_pairs) < 32 << 20
+    if cull:
+        assert int(got.num_kept) < int(got.num_pairs)
+    assert chip_smoke.pairs_equal(cuda_binning.build_pairs(*args, **kw),
+                                  got) == []
+
+
+def test_binning_wrapper_rejects_bad_inputs_cuda():
+    args, kw = _binning_gate(_cuda(), "cull_on")
+    tiles, rect, depth = args[:3]
+    before = dict(tracing.COUNTERS)
+    with pytest.raises(TypeError, match="tiles_touched"):
+        cuda_binning.build_pairs(tiles.long(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="depth"):
+        cuda_binning.build_pairs(tiles, rect, depth.cpu(), *args[3:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_binning.build_pairs(tiles, rect.t().contiguous().t(), depth,
+                                 *args[3:], **kw)
+    with pytest.raises(ValueError, match="cull_tcut"):
+        cuda_binning.build_pairs(*args, cull_xy=kw["cull_xy"],
+                                 cull_tcut=kw["cull_tcut"][:-1])
+    assert tracing.COUNTERS == before
