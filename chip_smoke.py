@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and build: versions, the card's name and power limit, and the
    nvcc builds of every kernel (K1, csrc/rasterize_fwd.cu; K2,
    csrc/rasterize_bwd.cu; K3, csrc/sol_compositing.cu; binning,
-   csrc/binning.cu), started together,
+   csrc/binning.cu; preprocess, csrc/preprocess.cu), started together,
    with ptxas's registers, shared memory and spills;
 2. K1 against its plain PyTorch version on the card and against the stored
    JAX outputs, on (a) the stored gate (tests/golden/pallas_gate.npz,
@@ -24,9 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (assets/lego_trained.ply, 129,053 Gaussians, SH degree 3) at 800x800
    from four orbit views, plus one ``render_forward`` view with
    tight_radius, pair_cull and a fitted kept_capacity; the launch counts
-   are zeroed just before and read just after (one binning and one K1
-   launch a view), and every image is held against the plain version's
-   image of the same view;
+   are zeroed just before and read just after (one preprocess, one binning
+   and one K1 launch a view), and every image is held against the plain
+   version's image of the same view;
 4. render times with CUDA events (medians after a warm-up), K1's bare
    time (``bare_ms``) and its wrapper's (``time_ms``), K1's bound, and a
    ``walk`` line per view (orbit and close): the tiles' pair counts, the
@@ -45,8 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    perturbed trained Lego (capacity 193,579 with the alive mask), in the
    trainer's camera order over 8 orbit views whose targets are the port's
    renders of the unperturbed Lego; the launch counts are zeroed just
-   before and read just after (one binning, one K1 and one K2 launch per
-   step), with the
+   before and read just after (one preprocess, one binning, one K1 and one
+   K2 launch per step), with the
    CTAs each launch started (``tracing.COUNTERS``); K2 runs from the
    checkpoints K1 returned (recorded as the render receives them) with
    more work items than tiles, no step overflows, loss and gradients are
@@ -66,8 +66,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    its plain version's;
 11. the port's bench (``gstpu_torch.bench.main``): the kernel gate with
    ``preprocess_backend_parity``, the headline (100k Gaussians, 800x800,
-   fitted capacities) with exactly one binning, one K1 and one K2 launch
-   per timed iteration (counts zeroed before, read after), the trained-scene
+   fitted capacities) with exactly one preprocess, one binning, one K1 and
+   one K2 launch per timed iteration (counts zeroed before, read after; the
+   gate adds one preprocess, one K1 and one K2 launch, each capacity fit
+   one binning), the trained-scene
    companion, ``vs_sol`` from phase 10's model; one headline iteration
    against the same with the plain compositing; then the bench suite
    (``gstpu_torch.bench_suite``) with the trained Lego, one line a metric;
@@ -78,16 +80,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the default GSConfig, 60 steps, densify events at 20 and 40, holdout 8:
    14 train and 2 val/test views) with the launch counts zeroed just before
    and read just after: one K2 launch per step run (replays included), at
-   least one K1 launch per step and per eval render, one binning per K1
-   launch; a densify event that
+   least one K1 launch per step and per eval render, one preprocess and one
+   binning per K1 launch; a densify event that
    changes the topology, every overflow replayed, finite losses whose last
    10 average below the first 10, eval and test PSNR, the PLY, cameras,
    losses, metrics and states written; the median step time (CUDA events),
    each densify event's time and the eval renders'; then a resume from the
    state at 30 that starts at 31 and writes the rest of loss.txt;
-13. the CLIs, through their ``main``s, with K1's and binning's launches
-   counted over each (one binning per K1 launch): ``python -m gstpu_torch.render`` writes the 1800x1800 example
-   (held against the plain compositing at K1's tolerances, the PNG equal to
+13. the CLIs, through their ``main``s, with K1's, binning's and
+   preprocess's launches counted over each (one binning and one preprocess
+   per K1 launch): ``python -m gstpu_torch.render`` writes the 1800x1800
+   example (held against the plain compositing at K1's tolerances, the PNG equal to
    the render); ``python -m gstpu_torch.eval_model`` on phase 12's PLY and
    its capture's test split (its PSNR within 0.01 dB of phase 12's test
    PSNR; its PSNR, of images clipped to [0, 1], within 0.01 dB of a render
@@ -102,7 +105,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``parallel/collectives.py`` sends from the card is refused); for meshes (n_data, n_model) = (1, 2) and
    (2, 2), child processes each take one sharded step (``parallel/
    sharded.py``) from the capture's initial model (capacity 193,580) with
-   one binning, one K1 and one K2 launch per rank (counted over the step),
+   one preprocess, one binning, one K1 and one K2 launch per rank (counted
+   over the step),
    hold K1 on
    their band, K1's checkpoints there and the step's gradients against the
    plain compositing at that band, and render one frame from their bands;
@@ -112,7 +116,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    at K1's; then ``python -m gstpu_torch.train --n-model 2 --n-data 2`` as
    4 ranks for 30 steps with a densify event at 20: every exit code within
    the timeout, one K1 and one K2 launch per step on each rank (rank 0 also
-   K1 per eval render) and one binning per K1 launch, the same model on every rank after the densify
+   K1 per eval render) and one preprocess and one binning per K1 launch,
+   the same model on every rank after the densify
    event, finite losses, rank 0's outputs.  Each group of children is
    killed after SHARDED_TIMEOUT_S seconds.  The step times and the bytes of
    each collective are transport through host memory on one card: they say
@@ -124,7 +129,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    for bit, twice), one ``binning.launches`` a call; the bare times of the
    duplicate kernel, CUB's sort and the finish kernel beside their byte
    bounds, ``torch.sort`` of the same keys, the wrapper and the plain
-   version; ptxas's registers and spills of the two kernels.
+   version; ptxas's registers and spills of the two kernels;
+16. preprocess (``phase_preprocess``): the kernel of csrc/preprocess.cu at
+   the benchmark's mip360-view shapes (2.96M seeded Gaussians, 1237x822,
+   SH degree 3), without and with an alive mask, against the plain
+   ``ops/preprocess.py::preprocess`` on the card (every field bit for bit,
+   twice), one ``preprocess.launches`` a call; its bare and wrapper times
+   beside its byte bound (every input row read once, every output written
+   once) and the bound of the bytes the visible Gaussians need, the plain
+   version's time; ptxas's registers and spills.
 
 Times.  ``ms`` on the kernels line is the bare kernel (``bare_ms``: the
 launch that the wrapper makes, repeated 20 times back to back between two
@@ -179,13 +192,14 @@ from gstpu_torch import render as render_cli
 from gstpu_torch import render_turntable, scenes, sol_model
 from gstpu_torch import train as train_cli
 from gstpu_torch import trainer as trainer_mod
-from gstpu_torch.config import GSConfig, RenderSettings
+from gstpu_torch.config import TILE_X, TILE_Y, GSConfig, RenderSettings
 from gstpu_torch.data.colmap import ColmapDataset
 from gstpu_torch.models.gaussians import (SH_C0, GaussianModel,
                                           activate_params, grow_capacity,
                                           init_model_from_points)
 from gstpu_torch.ops import (binning, cuda_binning, cuda_build,
-                             cuda_rasterize, kernel_check, rasterize)
+                             cuda_preprocess, cuda_rasterize, kernel_check,
+                             rasterize)
 from gstpu_torch.ops.cuda_binning import build_pairs
 from gstpu_torch.ops.losses import l1_loss, l1_pixel_gradients
 from gstpu_torch.ops.preprocess import preprocess
@@ -194,6 +208,7 @@ from gstpu_torch.render import default_pair_capacity, render_gaussians
 from gstpu_torch.trainer import (loss_and_grads, round_capacity,
                                  train_settings, train_step)
 from gstpu_torch.utils import tracing
+from gstpu_torch.utils.camera import load_camera, look_at_c2w
 from gstpu_torch.utils.image import imwrite
 
 SIZE = 800
@@ -303,9 +318,10 @@ PARENT_FILES = ("gstpu_torch/csrc/rasterize_fwd.cu",
 PARENT_WRAPPERS = {"cuda_rasterize.py": ("rasterize_fwd", "rasterize_bwd"),
                    "sol_model.py": ("sol_compositing",)}
 # The main path's launch counters in the port's registry: {kernel: key
-# prefix}; K1 and K2 count their CTAs too, binning only its launches
+# prefix}; K1 and K2 count their CTAs too, binning and preprocess only their
+# launches
 KERNEL_COUNTERS = {"rasterize_fwd": "k1", "rasterize_bwd": "k2",
-                   "binning": "binning"}
+                   "binning": "binning", "preprocess": "preprocess"}
 
 
 def log(**kw) -> None:
@@ -872,7 +888,7 @@ def phase_main_path(params, size: int, device, bg) -> int:
         compare(f"{name}: kernel render vs plain render", got,
                 to_np(plain_outputs(params, cam, settings, bg)))
     if counts != {"rasterize_fwd": len(renders), "rasterize_bwd": 0,
-                  "binning": len(renders)}:
+                  "binning": len(renders), "preprocess": len(renders)}:
         raise RuntimeError(f"{counts} launches for {len(renders)} renders")
     return counts["rasterize_fwd"]
 
@@ -1580,12 +1596,14 @@ def phase_bench(device, sol: dict) -> None:
     counts = launch_counts()
     extra = record["extra"]
     gate = extra.get("kernel_parity", {})
-    # the gate runs K1 and K2 once on its stored pairs; the headline and the
-    # trained scene each bin once to fit their capacities and run bench.RUNS
-    # timed fwd+bwd iterations
+    # the gate runs K1 and K2 once on its stored pairs and the preprocess
+    # kernel once on its scene; the headline and the trained scene each bin
+    # once (after the plain preprocess) to fit their capacities and run
+    # bench.RUNS timed fwd+bwd iterations
     want = {"rasterize_fwd": 1 + 2 * bench.RUNS,
             "rasterize_bwd": 1 + 2 * bench.RUNS,
-            "binning": 2 + 2 * bench.RUNS}
+            "binning": 2 + 2 * bench.RUNS,
+            "preprocess": 1 + 2 * bench.RUNS}
     log(path="bench", launches=counts, expected=want,
         per_iteration=extra["launches_per_iteration"], gate=gate)
     problems = []
@@ -1697,8 +1715,9 @@ def capture_readback_error(root: Path, cams) -> float:
 
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside compare a kernel with its plain version: K1's, K2's
-    and binning's launch and CTA counts are put back on leaving."""
+    """Launches inside compare a kernel with its plain version: K1's, K2's,
+    binning's and preprocess's launch and CTA counts are put back on
+    leaving."""
     keys = _counter_keys("launches", "ctas")
     saved = {k: tracing.COUNTERS[k] for k in keys}
     try:
@@ -1920,10 +1939,12 @@ def phase_trainer(device, size: int = SIZE, root: Path = CAPTURE_DIR,
         problems.append(f"kernels held against the plain versions at "
                         f"{sorted(probe.checks)}, not at a step and an eval "
                         "render")
-    # every forward, a step's, a replay's or an eval render's, bins once
+    # every forward, a step's, a replay's or an eval render's, preprocesses
+    # and bins once
     if got.get("rasterize_bwd") != steps_run \
             or got.get("rasterize_fwd", 0) < steps_run + renders \
-            or got.get("binning") != got.get("rasterize_fwd"):
+            or got.get("binning") != got.get("rasterize_fwd") \
+            or got.get("preprocess") != got.get("rasterize_fwd"):
         problems.append(f"launches {got} for {steps_run} steps and "
                         f"{renders} eval renders")
     if not any(e["cloned"] or e["split"] or e["pruned"] for e in densify):
@@ -1969,16 +1990,17 @@ def _counter_keys(*whats: str) -> list:
 
 
 def launch_counts(what: str = "launches") -> dict:
-    """K1's, K2's and binning's launches so far (or, with ``"ctas"``, the
-    CTAs that K1 and K2 started), by kernel, from the port's counters."""
+    """K1's, K2's, binning's and preprocess's launches so far (or, with
+    ``"ctas"``, the CTAs that K1 and K2 started), by kernel, from the
+    port's counters."""
     return {name: tracing.COUNTERS[f"{k}.{what}"]
             for name, k in KERNEL_COUNTERS.items()
             if f"{k}.{what}" in tracing.COUNTERS}
 
 
 def zero_launches() -> None:
-    """Set K1's, K2's and binning's launch and CTA counts to 0 (after the
-    card is idle)."""
+    """Set K1's, K2's, binning's and preprocess's launch and CTA counts to
+    0 (after the card is idle)."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     for key in _counter_keys("launches", "ctas"):
@@ -2122,9 +2144,10 @@ def phase_clis(device, root: Path = CAPTURE_DIR) -> dict:
         raise RuntimeError("the turntable CLI failed its checks")
     if any(c["rasterize_bwd"] for c in counts.values()):
         raise RuntimeError(f"a render CLI launched K2: {counts}")
-    if any(c["binning"] != c["rasterize_fwd"] for c in counts.values()):
-        raise RuntimeError(f"a render CLI's renders did not each bin once "
-                           f"through the kernels: {counts}")
+    if any(c["binning"] != c["rasterize_fwd"]
+           or c["preprocess"] != c["rasterize_fwd"] for c in counts.values()):
+        raise RuntimeError(f"a render CLI's renders did not each preprocess "
+                           f"and bin once through the kernels: {counts}")
     return counts
 
 
@@ -2501,8 +2524,8 @@ def sharded_step_check(inputs: dict, inputs_path: Path, device, n_data: int,
     if any(r["launches"] != dict.fromkeys(KERNEL_COUNTERS, 1)
            for r in ranks):
         raise RuntimeError(f"{name}: launches in one step per rank "
-                           f"{line['launches_per_rank']}, not one binning, "
-                           "one K1 and one K2 each")
+                           f"{line['launches_per_rank']}, not one "
+                           "preprocess, one binning, one K1 and one K2 each")
     return {"launches": [r["launches"] for r in ranks],
             "k1_band_color_err": max(r["checks"]["k1_band"]["color_err"]
                                      for r in ranks),
@@ -2557,12 +2580,14 @@ def sharded_training(capture: Path, out: Path, logs: Path, device) -> dict:
     log(path="sharded training", **line)
     problems = []
     for r in runs:
-        k1, k2, bins = (r["counters"][f"{k}.launches"]
-                        for k in ("k1", "k2", "binning"))
+        k1, k2, bins, preps = (r["counters"][f"{k}.launches"]
+                               for k in ("k1", "k2", "binning", "preprocess"))
         if k2 != r["steps_run"] or (k1 != r["steps_run"] if r["rank"]
-                                    else k1 < r["steps_run"]) or bins != k1:
+                                    else k1 < r["steps_run"]) \
+                or bins != k1 or preps != k1:
             problems.append(f"rank {r['rank']}: launches {k1} / {k2}, "
-                            f"binning {bins}, for {r['steps_run']} steps")
+                            f"binning {bins}, preprocess {preps}, for "
+                            f"{r['steps_run']} steps")
         if r["iteration"] != SHARDED_TRAIN_STEPS:
             problems.append(f"rank {r['rank']} ended at {r['iteration']}")
     digests = [r["densify_digests"] for r in runs]
@@ -2749,6 +2774,159 @@ def phase_binning(device, seed: int = BINNING_SEED) -> dict:
     return out
 
 
+# Phase 16, preprocess: the kernel of csrc/preprocess.cu at the shapes of
+# the benchmark's mip360-view cell (2.96M Gaussians at 1237x822, SH degree
+# 3) from seeded inputs (``preprocess_inputs``), without and with an alive
+# mask.  Bytes a Gaussian: means 12, scales 12, rotation 16 and opacity 4
+# read; the SH row (16 x 3 floats) read; PreprocessOut's 101 written; the
+# alive mask's 1 read where there is one.
+PREPROCESS_SEED = 16
+PREP_READ_BYTES = 44
+PREP_SH_BYTES = 192
+PREP_WRITE_BYTES = 101
+
+
+def preprocess_inputs(seed: int, n: int, width: int, height: int, device,
+                      alive_share: float | None = None):
+    """Seeded (args, kwargs) of ``preprocess`` for n Gaussians at SH degree
+    3 seen by a width x height camera (horizontal field of view 64 degrees)
+    on an orbit of radius 4 at height 1, looking at the origin: 55% of the
+    Gaussians in a ball of radius 2 about the origin, 20% on a ground disc
+    of radius 6 at height -1, 25% on a shell of radius 14; scales
+    log-uniform in [0.003, 0.1], uniformly random rotations, opacities in
+    [0.02, 0.99], SH DC N(0, 0.5^2) and the higher orders N(0, 0.05^2); with
+    ``alive_share`` an alive mask of that share."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    n_ball, n_ground = int(n * 0.55), int(n * 0.2)
+    n_shell = n - n_ball - n_ground
+    ball = randn(n_ball, 3)
+    ball *= 2.0 * rand(n_ball, 1) ** (1 / 3) / ball.norm(dim=1, keepdim=True)
+    angle, radius = 2 * math.pi * rand(n_ground), 6.0 * rand(n_ground).sqrt()
+    ground = torch.stack([radius * angle.cos(), radius * angle.sin(),
+                          torch.full_like(angle, -1.0)], 1)
+    shell = randn(n_shell, 3)
+    shell *= 14.0 / shell.norm(dim=1, keepdim=True)
+    means = torch.cat([ball, ground, shell])
+    scales = torch.exp(math.log(0.003) + math.log(0.1 / 0.003)
+                       * rand(n, 3))
+    q = randn(n, 4)
+    rotations = q / q.norm(dim=1, keepdim=True)
+    opacities = 0.02 + 0.97 * rand(n)
+    shs = 0.05 * randn(n, 16, 3)
+    shs[:, 0] = 0.5 * randn(n, 3)
+    theta = 2 * math.pi * float(rand(1))
+    eye = np.array([4.0 * math.cos(theta), 4.0 * math.sin(theta), 1.0])
+    cam = load_camera({"camera_id": 0, "camera_to_world": look_at_c2w(eye),
+                       "width": width, "height": height,
+                       "focal": 0.5 * width / math.tan(math.radians(32.0))})
+    view, proj, campos = camera_tensors(cam, device)
+    kw = {}
+    if alive_share is not None:
+        kw["alive"] = rand(n) < alive_share
+    grid_x, grid_y = -(-width // TILE_X), -(-height // TILE_Y)
+    return (means, scales, rotations, opacities, shs, view, proj, campos,
+            width, height, cam["tan_fovx"], cam["tan_fovy"], grid_x, grid_y,
+            3), kw
+
+
+def _ordered(x: torch.Tensor) -> torch.Tensor:
+    """float32 bits as int64 in the floats' order (-0 and +0 both 0)."""
+    i = _bits(x).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def prep_diff(got, want) -> dict:
+    """For each field of two ``PreprocessOut``: the elements that differ
+    (a float's bits, except that a NaN matches any NaN) and, for float
+    fields, the largest distance in units in the last place; a field whose
+    dtype or shape differs gets ``None``."""
+    out = {}
+    for f, a, b in zip(got._fields, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out[f] = None
+            continue
+        if not a.is_floating_point():
+            out[f] = {"differ": int((a != b).sum())}
+            continue
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        ulps = (_ordered(a) - _ordered(b)).abs().masked_fill(both_nan, 0)
+        same = (_bits(a) == _bits(b)) | both_nan
+        out[f] = {"differ": int((~same).sum()), "max_ulps": int(ulps.max())}
+    return out
+
+
+def differing(diff: dict) -> list:
+    """The fields of a ``prep_diff`` that differ."""
+    return [f for f, d in diff.items() if d is None or d["differ"]]
+
+
+def prep_equal(got, want) -> list:
+    """The fields of two ``PreprocessOut`` that differ in dtype, shape or
+    any element (a float's bits; a NaN matches any NaN): none when the two
+    are bit for bit the same."""
+    return differing(prep_diff(got, want))
+
+
+def phase_preprocess(device, seed: int = PREPROCESS_SEED) -> dict:
+    """Phase 16: the preprocess kernel (csrc/preprocess.cu) at
+    mip360-view's shapes against the plain ``ops/preprocess.py::preprocess``
+    on the card (every field bit for bit, twice), without and with an alive
+    mask, one ``preprocess.launches`` a call; the bare and wrapper times
+    beside the byte bound (every input row read) and the bound of what the
+    visible Gaussians need (the SH rows of those alone), the plain
+    version's time; ptxas's registers and spills."""
+    width, height = BINNING_SIZE
+    n = BINNING_GAUSSIANS
+    log(phase=16, gaussians=n, size=BINNING_SIZE, seed=seed)
+    _, build_log, _ = cuda_build.build()["preprocess"]
+    sass = ptxas_facts(build_log, "preprocess_kernel")
+    lib = cuda_preprocess._library()
+    out = {}
+    for form, share in (("view", None), ("train", 0.95)):
+        args, kw = preprocess_inputs(seed, n, width, height, device, share)
+        want = preprocess(*args, **kw)
+        before = tracing.COUNTERS["preprocess.launches"]
+        got = cuda_preprocess.preprocess(*args, **kw)
+        torch.cuda.synchronize()
+        if tracing.COUNTERS["preprocess.launches"] != before + 1:
+            raise RuntimeError("preprocess: one wrapper call, not one launch")
+        diff = prep_diff(got, want)
+        again = prep_equal(cuda_preprocess.preprocess(*args, **kw), got)
+        visible = int(want.visible.sum())
+        del want, got
+        log(check=f"preprocess {form}: kernel against the plain version",
+            diff=diff, rerun_differ=again, visible=visible)
+        if differing(diff) or again:
+            raise RuntimeError(f"preprocess {form}: {diff}, {again} differ")
+
+        def call():
+            return cuda_preprocess.preprocess(*args, **kw)
+
+        mask = n if share is not None else 0
+        nbytes = n * (PREP_READ_BYTES + PREP_SH_BYTES + PREP_WRITE_BYTES) \
+            + mask
+        need = n * (PREP_READ_BYTES + PREP_WRITE_BYTES) \
+            + visible * PREP_SH_BYTES + mask
+        bare = bare_ms(lib, "gstpu_preprocess", call)
+        out[form] = dict(
+            bare_ms=bare, wrapper_ms=time_ms(call, 20),
+            plain_ms=time_ms(lambda: preprocess(*args, **kw), 5, warmup=1),
+            bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+            visible=visible, visible_bytes=need,
+            visible_bound_ms=need / PEAK_BYTES_PER_S * 1e3)
+        out[form]["bound_pct"] = 100 * out[form]["bound_ms"] / bare
+        log(preprocess=form, **out[form], sass=sass)
+        del args, kw
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2788,6 +2966,7 @@ def main(argv=None) -> int:
     cli_launches = phase_clis(device)
     multirank = phase_multirank(device)
     binning_times = phase_binning(device)
+    preprocess_times = phase_preprocess(device)
     kernels = [
         {"name": "rasterize_fwd (K1)", "route": "cuda",
          "source": "gstpu_torch/csrc/rasterize_fwd.cu",
@@ -2841,6 +3020,19 @@ def main(argv=None) -> int:
          "sharded_training_launches": [
              r["binning"] for r in multirank["training"]["launches"]],
          **binning_times, "library_ms": None})
+    kernels.append(
+        {"name": "preprocess", "route": "cuda",
+         "source": "gstpu_torch/csrc/preprocess.cu", "replaces": None,
+         "launches": launches["preprocess"],
+         "trainer_launches": trainer_launches["preprocess"],
+         "cli_launches": {k: c["preprocess"]
+                          for k, c in cli_launches.items()},
+         "sharded_step_launches": {
+             m: [r["preprocess"] for r in v["launches"]]
+             for m, v in multirank.items() if m != "training"},
+         "sharded_training_launches": [
+             r["preprocess"] for r in multirank["training"]["launches"]],
+         **preprocess_times, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

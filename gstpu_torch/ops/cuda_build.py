@@ -9,7 +9,9 @@ modules set the argument types of their entry points:
 - ``rasterize_fwd`` (K1) and ``rasterize_bwd`` (K2): ``ops/cuda_rasterize.py``;
 - ``sol_compositing`` (K3): ``sol_model.py``;
 - ``binning`` (the duplicate and finish kernels around CUB's radix sort):
-  ``ops/cuda_binning.py``.
+  ``ops/cuda_binning.py``;
+- ``preprocess`` (cull, projection, covariances, rect and SH colour of each
+  Gaussian): ``ops/cuda_preprocess.py``.
 
 Each library also exports ``gstpu_cuda_error_string``.
 """
@@ -31,7 +33,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"rasterize_fwd": CSRC / "rasterize_fwd.cu",
            "rasterize_bwd": CSRC / "rasterize_bwd.cu",
            "sol_compositing": CSRC / "sol_compositing.cu",
-           "binning": CSRC / "binning.cu"}
+           "binning": CSRC / "binning.cu",
+           "preprocess": CSRC / "preprocess.cu"}
 HEADERS = (CSRC / "composite_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gstpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,7 +17,8 @@ package's).
   reference with the gate's flip-tolerant rules; ``chip_smoke.py`` uses them
   too.
 - ``preprocess_backend_parity`` re-runs the port's preprocess of the gate
-  scene on the device and holds it against the stored CPU prep.
+  scene on the device (through ``ops/cuda_preprocess.py``: the kernel on
+  the card) and holds it against the stored CPU prep.
 - ``compiled_parity_check`` is the whole gate, with the thresholds of
   ``pallas_check.py:130-131,160-188``.
 
@@ -35,9 +36,9 @@ import torch
 
 from gstpu_torch import convert, scenes
 from gstpu_torch.config import RenderSettings
-from gstpu_torch.ops import cuda_rasterize
+from gstpu_torch.ops import cuda_preprocess, cuda_rasterize
 from gstpu_torch.ops.binning import Pairs
-from gstpu_torch.ops.preprocess import PreprocessOut, preprocess
+from gstpu_torch.ops.preprocess import PreprocessOut
 
 GOLDEN_PATH = scenes.GATE_NPZ
 
@@ -160,10 +161,9 @@ def grad_errors(got, want, tol: float = MAX_GRAD_REL) -> dict:
     return res
 
 
-def _scene(device) -> PreprocessOut:
-    """The port's preprocess of the gate scene (seed 3, 8,000 Gaussians,
-    160x160).  The rest of ``pallas_check._scene`` (binning, cotangents)
-    only feeds the stored golden, which is the JAX package's."""
+def gate_inputs(device) -> tuple:
+    """The arguments of ``preprocess`` for the gate scene (seed 3, 8,000
+    Gaussians, 160x160, SH degree 3) on ``device``."""
     rng = np.random.default_rng(SEED)
     cam = scenes.example_camera(width=SIZE, height=SIZE)
     pts, shs, scales, rotations, opacities = scenes.random_scene(
@@ -175,10 +175,17 @@ def _scene(device) -> PreprocessOut:
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
 
-    return preprocess(t(pts), t(scales), t(rotations), t(opacities), t(shs),
-                      t(cam["view"]), t(cam["proj"]), t(cam["campos"]), SIZE,
-                      SIZE, cam["tan_fovx"], cam["tan_fovy"], settings.grid_x,
-                      settings.grid_y, 3)
+    return (t(pts), t(scales), t(rotations), t(opacities), t(shs),
+            t(cam["view"]), t(cam["proj"]), t(cam["campos"]), SIZE, SIZE,
+            cam["tan_fovx"], cam["tan_fovy"], settings.grid_x,
+            settings.grid_y, 3)
+
+
+def _scene(device) -> PreprocessOut:
+    """The port's preprocess of the gate scene.  The rest of
+    ``pallas_check._scene`` (binning, cotangents) only feeds the stored
+    golden, which is the JAX package's."""
+    return cuda_preprocess.preprocess(*gate_inputs(device))
 
 
 def preprocess_backend_parity(golden_path: Path = GOLDEN_PATH,

@@ -18,10 +18,10 @@ epilogue that turns the backward kernel's per-pair rows into per-Gaussian
 gradients.
 
 ``render`` is the differentiable render (a ``torch.autograd.Function``):
-preprocess, binning (``ops/cuda_binning.py``: the binning kernels for CUDA
-tensors, the plain version on the CPU), compositing, background and tiles
-back to an image, with the hand-written backward of the JAX package's
-custom VJP.
+preprocess (``ops/cuda_preprocess.py``) and binning
+(``ops/cuda_binning.py``), each a kernel for CUDA tensors and the plain
+version on the CPU, compositing, background and tiles back to an image,
+with the hand-written backward of the JAX package's custom VJP.
 ``render_forward`` runs the same forward without autograd.
 
 Sharded (``settings.shard_axis``, the name of an axis of the ``mesh`` that
@@ -42,9 +42,9 @@ from typing import NamedTuple
 import torch
 
 from gstpu_torch.config import RenderSettings, TILE_PIXELS, TILE_X, TILE_Y
-from gstpu_torch.ops import cuda_binning, preprocess_bwd
+from gstpu_torch.ops import cuda_binning, cuda_preprocess, preprocess_bwd
 from gstpu_torch.ops.binning import Pairs
-from gstpu_torch.ops.preprocess import PreprocessOut, preprocess
+from gstpu_torch.ops.preprocess import PreprocessOut
 from gstpu_torch.utils import tracing
 
 ALPHA_MIN = 1.0 / 255.0   # forward.py:481
@@ -453,11 +453,12 @@ def _render_fwd(settings: RenderSettings, tan_fovx: float, tan_fovy: float,
     ``rest`` is what ``composite_fwd`` returns past its four outputs (the
     checkpoints of ``cuda_rasterize.composite_forward_checkpointed``)."""
     def _preprocess(ms, sc, rt, op, sh, al):
-        return preprocess(ms, sc, rt, op, sh, view, proj, campos,
-                          settings.width, settings.height, tan_fovx,
-                          tan_fovy, settings.grid_x, settings.grid_y,
-                          settings.sh_degree, scale_modifier=scale_modifier,
-                          alive=al, tight_radius=settings.tight_radius)
+        return cuda_preprocess.preprocess(
+            ms, sc, rt, op, sh, view, proj, campos, settings.width,
+            settings.height, tan_fovx, tan_fovy, settings.grid_x,
+            settings.grid_y, settings.sh_degree,
+            scale_modifier=scale_modifier, alive=al,
+            tight_radius=settings.tight_radius)
 
     axis = _slice_axis(settings, mesh, means.shape[0], "preprocess")
     with tracing.span("forward.preprocess"):

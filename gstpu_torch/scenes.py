@@ -9,6 +9,10 @@
   (seed 7): most tiles saturate and exit early, and tile starts are not
   multiples of 128.  ``example_camera`` and ``random_scene`` are copies of
   the JAX package's ``tests/scenes.py``.
+- ``preprocess_edge_case``: Gaussians at each edge of the preprocess (view
+  depth 0, just behind and on the near plane, a 2D covariance with
+  determinant 0, off the grid, tile rects that saturate, a negative SH
+  colour) among ordinary ones.
 - ``lego_params`` / ``lego_orbit``: the trained Lego point cloud in
   ``assets/lego_trained.ply`` seen from orbit cameras with Lego's field of
   view, so a render needs no dataset.  ``lego_close_view`` is a camera close
@@ -78,6 +82,66 @@ def span_edge_case():
         gm_pos=np.arange(k, dtype=np.int32),
         gauss_cum=np.zeros(n, np.int32))
     return settings, prep, pairs
+
+
+# preprocess_edge_case's Gaussians at the edges, by their index
+PREP_EDGES = {"depth_zero": 0, "behind_near": 1, "on_near": 2, "det_zero": 3,
+              "off_grid": 4, "saturated_off_grid": 5,
+              "saturated_off_grid_neg": 6, "saturated_rect": 7,
+              "saturated_rect_inf": 8, "negative_colour": 9}
+
+
+def preprocess_edge_case(n_ordinary: int = 54):
+    """(arrays, camera) for ``preprocess``: the Gaussians of ``PREP_EDGES``
+    followed by ``n_ordinary`` seeded ones, seen by a 160x160 camera at the
+    origin that looks along +z (view the identity, so a Gaussian's view
+    depth is its z), tan_fov 0.5 both ways (focal 160), 10 x 10 tiles.
+
+    ``det_zero`` is a needle at depth 5 on the optical axis, 2,000 long
+    along the image diagonal (scales (2000, 0, 0), the unnormalized
+    quaternion (0, 0, 0.5, 0.5), whose rotation maps x to (0.5, 0.5, 0)):
+    its screen covariance is [[v, v], [v, v]] with v = 1.024e9 exactly, so
+    the 0.3 blur is lost and a*c - b*b is 0.  ``saturated_rect`` (scale
+    1.85e8) has a finite radius over 2^30 tiles and ``saturated_rect_inf``
+    (3e8) an infinite one: both cover the whole grid.  The saturated
+    off-grid ones project to x = +-1.6e11 pixels."""
+    rng = np.random.default_rng(17)
+    k = len(PREP_EDGES)
+    n = k + n_ordinary
+    means = np.zeros((n, 3), np.float32)
+    scales = np.full((n, 3), 0.05, np.float32)
+    rotations = np.tile(np.float32([0.0, 0.0, 0.0, 1.0]), (n, 1))
+    opacities = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    shs = rng.normal(0.0, 0.3, (n, 16, 3)).astype(np.float32)
+    e = PREP_EDGES
+    means[e["depth_zero"]] = (0.1, 0.1, 0.0)
+    means[e["behind_near"], 2] = np.nextafter(np.float32(0.2), np.float32(0))
+    means[e["on_near"], 2] = np.float32(0.2)
+    means[e["det_zero"], 2] = 5.0
+    scales[e["det_zero"]] = (2000.0, 0.0, 0.0)
+    rotations[e["det_zero"]] = (0.0, 0.0, 0.5, 0.5)
+    means[e["off_grid"]] = (50.0, 0.0, 5.0)
+    means[e["saturated_off_grid"]] = (1e9, 0.0, 1.0)
+    means[e["saturated_off_grid_neg"]] = (-1e9, 0.0, 1.0)
+    for name, s in (("saturated_rect", 1.85e8), ("saturated_rect_inf", 3e8)):
+        means[e[name], 2] = 5.0
+        scales[e[name]] = (s, 1e-3, 1e-3)
+    means[e["negative_colour"]] = (0.2, -0.1, 4.0)
+    shs[e["negative_colour"], 0] = -5.0
+    means[k:, :2] = rng.uniform(-2.0, 2.0, (n_ordinary, 2))
+    means[k:, 2] = rng.uniform(1.0, 8.0, n_ordinary)
+    scales[k:] = rng.uniform(0.01, 0.3, (n_ordinary, 3))
+    q = rng.normal(0.0, 1.0, (n_ordinary, 4))
+    rotations[k:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    fov = 2.0 * math.atan(0.5)
+    camera = {"view": np.eye(4, dtype=np.float32),
+              "proj": projection_matrix(fovx=fov, fovy=fov, znear=0.01,
+                                        zfar=100.0).T.astype(np.float32),
+              "campos": np.zeros(3, np.float32), "width": 160,
+              "height": 160, "tan_fovx": 0.5, "tan_fovy": 0.5}
+    arrays = dict(means=means, scales=scales, rotations=rotations,
+                  opacities=opacities, shs=shs)
+    return arrays, camera
 
 
 def lego_params(subset: int | None = None, seed: int = 0):

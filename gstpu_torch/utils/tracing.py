@@ -10,10 +10,10 @@ exactly when a profiler is on, and has no switch of its own.  Spans nest;
 a layer's self time is its span less its children.
 
 ``COUNTERS`` holds the port's host integers by name (``KEYS``): kernel
-launches and CTAs, binnings through the kernels, the bytes each collective
-hands to the backend, and pairs against pair slots.  Each is added where
-the host already holds the value, so no span or counter reads the device,
-synchronizes or launches.
+launches and CTAs, binnings and preprocesses through the kernels, the
+bytes each collective hands to the backend, and pairs against pair slots.
+Each is added where the host already holds the value, so no span or
+counter reads the device, synchronizes or launches.
 
 ``TRACED`` holds what was added to the counters while a profiler recorded:
 the counters of a profiled window alone, read after it.
@@ -32,6 +32,8 @@ KEYS = (
     "k1.launches", "k1.ctas", "k2.launches", "k2.ctas",
     # each binning through the kernels of csrc/binning.cu
     "binning.launches",
+    # each preprocess through the kernel of csrc/preprocess.cu
+    "preprocess.launches",
     "collective.bytes.all_gather", "collective.bytes.reduce_scatter",
     "collective.bytes.all_reduce", "collective.bytes.exchange",
     # each render_gaussians render: its pairs and the pair capacity it ran at

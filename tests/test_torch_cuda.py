@@ -19,7 +19,16 @@ and no launch for 0 tiles; the binning kernels (``csrc/binning.cu``)
 against the plain ``binning.build_pairs`` on the card, every ``Pairs``
 field bit for bit, on the gate (cull off, where they are also the stored
 JAX pairs, and on, a kept capacity, a round-robin band), an overflow, equal depths, tiles with no pair and 3M
-seeded Gaussians in 32M slots, and the wrapper's checks.
+seeded Gaussians in 32M slots, and the wrapper's checks; the preprocess
+kernel (``csrc/preprocess.cu``) against the plain ``preprocess`` on the
+card, every ``PreprocessOut`` field bit for bit (a NaN matches any NaN) and
+the same bits on a second launch, on the gate (where the entry also gives
+the stored JAX prep within the gate's limits), at every SH degree with and
+without the tight radius, an alive mask and a scale modifier, at the edges
+of ``scenes.preprocess_edge_case``, on a sharded slice (contiguous, and as
+columns of the all-gather's packed buffer), at 2.96M seeded
+Gaussians, the wrapper's checks, and one preprocess launch per K1 launch in
+``render_gaussians``.
 
 This file imports nothing of JAX, so it runs on a machine without it once
 ``tests/conftest.py`` (which imports jax) is left out:
@@ -40,7 +49,7 @@ from chip_smoke import (GRAD_NAMES, K3_BWD_REL_TOL, K3_FWD_TOL, check_grads,
 from gstpu_torch import convert, scenes, sol_model
 from gstpu_torch.config import RenderSettings
 from gstpu_torch.ops import binning, cuda_binning, cuda_rasterize
-from gstpu_torch.ops import rasterize
+from gstpu_torch.ops import cuda_preprocess, kernel_check, rasterize
 from gstpu_torch.ops.binning import build_pairs
 from gstpu_torch.ops.preprocess import preprocess
 from gstpu_torch.utils import tracing
@@ -453,3 +462,154 @@ def test_binning_wrapper_rejects_bad_inputs_cuda():
         cuda_binning.build_pairs(*args, cull_xy=kw["cull_xy"],
                                  cull_tcut=kw["cull_tcut"][:-1])
     assert tracing.COUNTERS == before
+
+
+# --- preprocess: csrc/preprocess.cu against the plain preprocess ---
+
+def _prep_matches_plain(args, **kw):
+    """The kernel's ``PreprocessOut`` (one counted launch) equal to the
+    plain version's on the card in every field, bit for bit (a NaN matches
+    any NaN), and a second launch giving the same bits; returns it."""
+    before = tracing.COUNTERS["preprocess.launches"]
+    got = cuda_preprocess.preprocess(*args, **kw)
+    torch.cuda.synchronize()
+    assert tracing.COUNTERS["preprocess.launches"] == before + 1
+    diff = chip_smoke.prep_diff(got, preprocess(*args, **kw))
+    assert chip_smoke.differing(diff) == [], diff
+    assert chip_smoke.prep_equal(cuda_preprocess.preprocess(*args, **kw),
+                                 got) == []
+    return got
+
+
+def _prep_gate(device, sh_degree=3):
+    return kernel_check.gate_inputs(device)[:-1] + (sh_degree,)
+
+
+def test_preprocess_kernel_matches_plain_on_the_gate_cuda():
+    dev = _cuda()
+    _prep_matches_plain(_prep_gate(dev))
+    # through the entry, as the bench's kernel gate runs it: the stored JAX
+    # prep within the gate's limits
+    res = kernel_check.preprocess_backend_parity(device=dev)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("form", ["plain", "tight_alive_scaled"])
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
+def test_preprocess_kernel_matches_plain_at_every_sh_degree_cuda(sh_degree,
+                                                                 form):
+    dev = _cuda()
+    kw = {}
+    if form == "tight_alive_scaled":
+        alive = np.random.default_rng(5).uniform(size=kernel_check.N) < 0.7
+        kw = dict(tight_radius=True, scale_modifier=0.7,
+                  alive=torch.as_tensor(alive, device=dev))
+    got = _prep_matches_plain(_prep_gate(dev, sh_degree), **kw)
+    assert 1000 < int(got.visible.sum())
+    if kw:
+        assert not bool(got.visible[~kw["alive"]].any())
+
+
+def test_preprocess_kernel_matches_plain_at_the_edges_cuda():
+    """Depth 0, just behind and on the near plane, det 0, off the grid,
+    saturated rects, a negative colour (``scenes.preprocess_edge_case``;
+    the CPU tests check that each edge is hit)."""
+    dev = _cuda()
+    arrays, cam = scenes.preprocess_edge_case()
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    args = tuple(t(arrays[k]) for k in ("means", "scales", "rotations",
+                                        "opacities", "shs")) + (
+        t(cam["view"]), t(cam["proj"]), t(cam["campos"]), cam["width"],
+        cam["height"], cam["tan_fovx"], cam["tan_fovy"], 10, 10, 3)
+    got = _prep_matches_plain(args)
+    e = scenes.PREP_EDGES
+    assert bool(torch.isnan(got.conic[e["depth_zero"]]).all())
+    assert int(got.radii[e["saturated_rect_inf"]]) == 2**30
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+def test_preprocess_kernel_matches_plain_on_a_sharded_slice_cuda(gathered):
+    """The second half of 8,002 Gaussians, as rank 1 of two preprocesses
+    it: its means and scales start 48,012 bytes in (not 16-byte aligned);
+    ``gathered``: every parameter a column of one packed buffer, as the
+    sharded path's all-gather hands them (not contiguous: copied first),
+    and the view matrix transposed twice (not contiguous either)."""
+    from gstpu_torch.parallel import collectives
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    cam = scenes.example_camera(width=160, height=160)
+    pts, shs, scales, rotations, opacities = scenes.random_scene(
+        rng, n=8002, extent=1.3, z_center=-8.0, scale_range=(0.01, 0.08))
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    full = [t(x) for x in (pts, scales, rotations, opacities, shs)]
+    view = t(cam["view"])
+    if gathered:
+        full = collectives._unpack_floats(collectives._pack_floats(full),
+                                          full)
+        view = view.t().contiguous().t()
+        assert not any(x.is_contiguous() for x in full[:3] + [view])
+    args = tuple(x[4001:] for x in full) + (
+        view, t(cam["proj"]), t(cam["campos"]), 160, 160, cam["tan_fovx"],
+        cam["tan_fovy"], 10, 10, 3)
+    assert args[0].data_ptr() % 16 != 0
+    _prep_matches_plain(args, alive=torch.ones(4001, dtype=torch.bool,
+                                               device=dev))
+
+
+def test_preprocess_kernel_matches_plain_at_3m_gaussians_cuda():
+    """2.96M seeded Gaussians at mip360-view's 1237 x 822 (78 x 52 tiles),
+    SH degree 3, as ``chip_smoke.py``'s phase 16 times them."""
+    dev = _cuda()
+    args, kw = chip_smoke.preprocess_inputs(7, 2_960_000, 1237, 822, dev)
+    got = _prep_matches_plain(args, **kw)
+    assert 0.05 < float(got.visible.float().mean()) < 0.95
+
+
+def test_preprocess_wrapper_rejects_bad_inputs_cuda():
+    dev = _cuda()
+    args = _prep_gate(dev)
+    means, scales, rotations, opacities, shs, view, proj, campos = args[:8]
+    rest = args[8:]
+    n = means.shape[0]
+    before = dict(tracing.COUNTERS)
+
+    def call(*arrays, **kw):
+        return cuda_preprocess.preprocess(*arrays, *rest, **kw)
+
+    with pytest.raises(TypeError, match="means"):
+        call(means.double(), *args[1:8])
+    with pytest.raises(ValueError, match="campos"):
+        call(*args[:7], campos.cpu())
+    with pytest.raises(ValueError, match="opacities"):
+        call(*args[:3], opacities[:, None], *args[4:8])
+    shifted = torch.empty(4 * n + 1, device=dev)[1:].view(n, 4)
+    shifted.copy_(rotations)
+    with pytest.raises(ValueError, match="aligned"):
+        call(*args[:2], shifted, *args[3:8])
+    with pytest.raises(TypeError, match="alive"):
+        call(*args[:8], alive=torch.ones(n, dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError, match="sh_degree"):
+        cuda_preprocess.preprocess(*args[:-1], 4)
+    assert tracing.COUNTERS == before
+
+
+def test_render_launches_preprocess_as_often_as_k1_cuda():
+    from gstpu_torch.render import render_gaussians
+
+    dev = _cuda()
+    g = kernel_check.gate_inputs(dev)
+    means, scales, rotations, opacities, shs, view, proj, campos = g[:8]
+    keys = ("preprocess.launches", "k1.launches", "binning.launches")
+    before = {k: tracing.COUNTERS[k] for k in keys}
+    for _ in range(2):
+        render_gaussians(torch.zeros(3, device=dev), means,
+                         opacity=opacities, scales=scales,
+                         rotations=rotations, viewmatrix=view,
+                         projmatrix=proj, tan_fovx=g[10], tan_fovy=g[11],
+                         image_height=160, image_width=160, sh=shs,
+                         campos=campos, device=dev)
+    torch.cuda.synchronize()
+    got = {k: tracing.COUNTERS[k] - before[k] for k in keys}
+    assert got["preprocess.launches"] == got["k1.launches"] >= 2
+    assert got["binning.launches"] == got["k1.launches"]
